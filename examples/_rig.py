@@ -18,16 +18,6 @@ matplotlib.use("Agg")  # Headless: figures are saved, not shown.
 
 import numpy as np
 
-# Fall back to CPU when the configured jax platform (e.g. a TPU plugin)
-# is unavailable in this environment.
-import jax
-
-try:
-    jax.devices()
-except RuntimeError:
-    jax.config.update("jax_platforms", "cpu")
-    jax.devices()
-
 
 OUTPUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output")
 

@@ -1,7 +1,7 @@
 """
 Batched holography: many independent holograms in one device program.
 
-TPU-first feature beyond the reference: a movie of tweezer-rearrangement
+A feature beyond the reference: a movie of tweezer-rearrangement
 frames (or a parameter scan) optimizes as ONE vmapped scan —
 :func:`~slmsuite_tpu.holography.algorithms.optimize_batch` — instead of
 K sequential ``optimize`` calls. Over a multi-chip mesh the batch axis

@@ -10,9 +10,10 @@ directly (though its engines are what runs underneath):
 2. ``CompressedSpotHologram.optimize(mesh=...)`` — the pixel axis
    sharded over the mesh (one (N,) psum per transform direction).
 3. ``Hologram.optimize(mesh=...)`` — the full farfield plane row-sharded
-   (giant-k-space holography; pencil FFT with ``all_to_all`` over ICI).
+   (giant-k-space holography; pencil FFT with ``all_to_all`` between
+   the cards).
 
-On a real TPU slice just build the mesh from ``jax.devices()``. This
+On a host with several GPUs just build the mesh from ``jax.devices()``. This
 script self-provisions 8 VIRTUAL CPU devices so it runs anywhere —
 shardings, collectives, and convergence are identical; only speed
 differs. Mirrors what ``__graft_entry__.dryrun_multichip`` validates.

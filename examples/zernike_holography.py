@@ -4,7 +4,7 @@ Zernike (grid-free) holography: 3D focus arrays with per-spot aberrations.
 :class:`CompressedSpotHologram` represents each spot by its Zernike
 coefficients — lateral position (tilt), depth (focus), and arbitrary
 aberration terms — with no DFT grid at all. The near<->far transform is
-an MXU matmul kernel contraction; gradient (CG) polish runs through it
+a matmul kernel contraction; gradient (CG) polish runs through it
 with ``jax.grad``. (Reference example: ``zernike_holography`` notebook.)
 """
 

@@ -1,9 +1,9 @@
 """
-slmsuite-tpu: TPU-native spatial light modulator control and computational
+slmsuite-tpu: spatial light modulator control and computational
 holography, built on JAX / XLA / Pallas.
 
 Capability parity target: ``slmsuite`` v0.4.1 (see SURVEY.md at the repo
-root for the component inventory this package rebuilds TPU-first).
+root for the component inventory this package rebuilds on JAX).
 """
 
 __version__ = "0.1.0"

@@ -14,7 +14,7 @@ import warnings
 
 import numpy as np
 from scipy import optimize
-from tqdm.auto import tqdm
+from slmsuite_tpu.misc.progress import tqdm
 
 from slmsuite_tpu import __version__
 from slmsuite_tpu.hardware import _Picklable

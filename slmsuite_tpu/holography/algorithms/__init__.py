@@ -1,5 +1,5 @@
 r"""
-Iterative phase-retrieval holography on TPU.
+Iterative phase-retrieval holography on JAX accelerators.
 
 Class hierarchy (parity: reference ``algorithms/__init__.py:39-59``):
 

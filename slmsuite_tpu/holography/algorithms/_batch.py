@@ -6,7 +6,7 @@ Beyond the reference (which optimizes one hologram per call): stack K
 instances — frames of a tweezer-rearrangement movie, a parameter scan,
 per-wavelength variants — and advance them in lockstep through ONE
 compiled program (``vmap`` over the batch). On one chip this amortizes
-dispatch and keeps the MXU saturated at small shapes; over a
+dispatch and keeps the device busy at small shapes; over a
 ``jax.sharding.Mesh`` the batch axis shards with no collectives at all
 (embarrassingly parallel, unlike
 :class:`~slmsuite_tpu.holography.algorithms.MultiplaneHologram`, whose

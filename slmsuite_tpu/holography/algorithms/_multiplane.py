@@ -17,7 +17,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from tqdm.auto import tqdm
+from slmsuite_tpu.misc.progress import tqdm
 
 from slmsuite_tpu.holography.algorithms._hologram import Hologram
 from slmsuite_tpu.ops import propagation as _prop

@@ -17,7 +17,6 @@ misc :2343-2405).
 import warnings
 from functools import reduce
 
-import cv2
 import numpy as np
 from scipy.ndimage import binary_erosion
 from scipy.optimize import curve_fit, minimize
@@ -856,6 +855,8 @@ def blob_detect(img, filter=None, plot=False, **kwargs):
 
     Returns ``(blobs, detector)``.
     """
+    import cv2
+
     img_8bit = _make_8bit(np.copy(img))
     params = cv2.SimpleBlobDetector_Params()
 
@@ -924,6 +925,8 @@ def _dft_peak_points(img, dft_threshold, dft_padding):
     suppressed 0th order, blob-detected at progressively coarser blur.
     Returns (points (N, 2) in full-res DFT pixels, fft_size).
     """
+    import cv2
+
     fft_size = int(2 ** (np.floor(np.log2(np.max(np.shape(img)))) + dft_padding))
     dft = np.abs(np.fft.fftshift(np.fft.fft2(img, s=[fft_size, fft_size])))
 
@@ -1047,6 +1050,8 @@ def _array_center_kernel_match(img_8bit, M_trial, size):
     image to locate the array center. Returns (max_val, b (2, 1), mask_shape,
     rotated_centers, max_loc, max_pitch).
     """
+    import cv2
+
     x_list = np.arange(-(size[0] - 1) / 2.0, (size[0] + 1) / 2.0)
     y_list = np.arange(-(size[1] - 1) / 2.0, (size[1] + 1) / 2.0)
     xg, yg = np.meshgrid(x_list, y_list)

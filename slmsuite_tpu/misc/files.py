@@ -11,7 +11,6 @@ import os
 import re
 import warnings
 
-import h5py
 import numpy as np
 
 __all__ = [
@@ -124,6 +123,7 @@ def load_h5(file_path, decode_bytes=True):
     -------
     dict
     """
+    import h5py
 
     def visit(group):
         out = {}
@@ -164,6 +164,7 @@ def save_h5(file_path, data, mode="w"):
     mode : str
         h5py file mode (default overwrite).
     """
+    import h5py
 
     def visit(group, mapping):
         for key, value in mapping.items():

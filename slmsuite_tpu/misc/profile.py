@@ -1,15 +1,14 @@
 """
-Profiling and timing helpers for TPU work.
+Profiling and timing helpers for device work.
 
 The reference leans on tqdm + pytest-benchmark + line-profiler (SURVEY
-section 5); the TPU equivalents here are:
+section 5); the equivalents here are:
 
 - :func:`trace` — context manager around ``jax.profiler`` emitting a
   TensorBoard-loadable trace of device execution.
-- :func:`time_scan` — robust wall-clock rate for a jitted step function,
-  chaining dependent iterations in one ``lax.scan`` so runtimes that
-  cache identical dispatches (or whose ``block_until_ready`` is
-  unreliable over remote transports) cannot skip the work.
+- :func:`time_scan` — wall-clock rate for a jitted step function,
+  chaining dependent iterations in one ``lax.scan`` and waiting with
+  ``block_until_ready``.
 - :func:`bytes_accessed` — XLA's deterministic cost-analysis byte count
   for a function, the hardware-noise-free way to compare memory-bound
   kernels.
@@ -44,12 +43,11 @@ def time_scan(step, init, n_iterations=50, repeats=3):
     Measure iterations/second of ``carry -> carry`` function ``step``.
 
     The iterations are chained in a single jitted ``lax.scan`` (each
-    depends on the previous, so nothing can be elided) and a leaf of the
-    result is fetched to force completion. Returns the best rate over
+    depends on the previous, so nothing can be elided) and the result is
+    waited for with ``block_until_ready``. Returns the best rate over
     ``repeats`` timed runs (first run warms the compile cache).
     """
     import jax
-    import numpy as np
 
     @jax.jit
     def run(carry):
@@ -62,7 +60,7 @@ def time_scan(step, init, n_iterations=50, repeats=3):
     def once():
         start = time.perf_counter()
         out = run(init)
-        np.asarray(jax.tree_util.tree_leaves(out)[0])  # Force completion.
+        jax.block_until_ready(out)
         return n_iterations / (time.perf_counter() - start)
 
     once()  # Compile + warm.
@@ -72,7 +70,7 @@ def time_scan(step, init, n_iterations=50, repeats=3):
 def bytes_accessed(fn, *args):
     """
     XLA cost-analysis ``bytes accessed`` for ``jit(fn)(*args)`` — a
-    deterministic, hardware-independent proxy for HBM traffic. Returns
+    deterministic, hardware-independent proxy for device-memory traffic. Returns
     ``None`` when the backend does not report cost analysis.
     """
     import jax

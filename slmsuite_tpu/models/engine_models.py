@@ -4,7 +4,7 @@ Single-chip flagship models over the scanned engine.
 Ref workload provenance: the reference benchmarks GS/WGS spot arrays at
 1024² with pytest-benchmark (``tests/holography/test_algorithms.py:121-145``)
 and demonstrates MRAF image targets in its docs; these builders are the
-TPU-native, engine-level equivalents used by ``bench.py`` and
+Engine-level equivalents used by ``bench.py`` and
 ``__graft_entry__``.
 """
 

@@ -1,7 +1,7 @@
 """
 Native (C) runtime components, loaded via ctypes.
 
-The TPU compute path is jax/XLA/Pallas; these C kernels cover host-side
+The device compute path is jax/XLA/Pallas; these C kernels cover host-side
 hot loops around it — the frame-rate SLM write-path conversion
 (:mod:`phase2gray`) and the TI PLM electrode packing (:mod:`plm_pack`).
 Compiled on demand with the system compiler and cached next to the

@@ -1,5 +1,5 @@
 """
-TPU compute primitives (jit/Pallas): the shift-free centered-FFT pair, WGS
+Compute primitives (jit/Pallas): the shift-free centered-FFT pair, WGS
 weight-update rules, device-side statistics, the scanned GS engine, and
 compressed Zernike spot transforms.
 """

@@ -1,10 +1,9 @@
 r"""
 Compressed (grid-free) spot transforms and the compressed GS engine.
 
-Replaces the reference's custom CUDA kernels
+The jnp twins of the reference's custom CUDA kernels
 (``cuda.cu:95-288``: ``compressed_farfield2nearfield`` /
-``compressed_nearfield2farfield``) with TPU-native pipelines. The
-transform pair is
+``compressed_nearfield2farfield``). The transform pair is
 
 .. math::
     \text{nf}[p] = \sum_n \text{ff}[n]\,
@@ -14,12 +13,11 @@ transform pair is
 
 where :math:`B` is the Zernike basis stack evaluated once on the scaled
 SLM grid and :math:`c` are per-spot Zernike coefficients. The phase
-matrix :math:`B^T c` is an MXU matmul; the kernel is never materialized
-globally — a ``lax.scan`` over pixel tiles (and spot tiles for large N)
-bounds memory, mirroring the reference's ``N_BATCH_MAX`` batching
-(``_spots.py:175``). A fused Pallas kernel
-(:mod:`slmsuite_tpu.ops.pallas_compressed`) removes even the tile
-round-trips to HBM where available.
+matrix :math:`B^T c` is a float32 matmul; the kernel is never
+materialized globally — a ``lax.scan`` over pixel tiles bounds memory,
+mirroring the reference's ``N_BATCH_MAX`` batching (``_spots.py:175``).
+The fused kernels of :mod:`slmsuite_tpu.ops.pallas_compressed` keep the
+phase tile in registers instead (GPU only).
 """
 
 import dataclasses
@@ -35,8 +33,6 @@ from slmsuite_tpu.ops.weights import update_weights_generic
 
 #: Pixel-tile length for the scan (flattened SLM pixels per step).
 PIXEL_TILE = 8192
-#: Maximum spot count processed in one tile.
-SPOT_TILE = 1024
 
 
 def build_zernike_basis(indices, slm, dtype=np.float32):
@@ -89,7 +85,7 @@ def farfield_to_nearfield(ff_re, ff_im, coeffs, basis, n_spots):
     scale = 1.0 / np.sqrt(P)
 
     def tile_fn(_, basis_tile):
-        # (N, D) @ (D, T) on the MXU -> phases, then fused sincos + matvec.
+        # (N, D) @ (D, T) -> phases, then sincos + matvec.
         phases = jnp.einsum(
             "dn,dt->nt", coeffs, basis_tile,
             precision=jax.lax.Precision.HIGHEST,
@@ -158,30 +154,15 @@ def nearfield_to_farfield_raw(nf_re, nf_im, coeffs, basis, n_spots):
 def build_kernel_cache(coeffs, basis):
     """
     Materialize the constant transform kernel as pixel-tiled cos/sin
-    stacks ``(n_tiles, N, PIXEL_TILE)`` — the TPU analog of the
-    reference's cached cupy kernel batches (``_spots.py:595-636``,
-    ``N_BATCH_MAX`` cache). The kernel phases ``B^T c`` are loop
-    INVARIANT: caching trades the per-iteration sincos recompute
-    (~2 x N x P transcendentals on the VPU, the measured bottleneck of
-    the grid-free loop) for an HBM-bandwidth-bound stream of the tiles.
-    Built with the identical einsum/sincos the JNP recompute path runs
-    (bit-for-bit match there); the PALLAS recompute kernel synthesizes
-    its sincos with the bounded-domain minimax polynomials (~1e-7
-    error), so toggling the cache on the Pallas engine moves results at
-    f32-ulp level — within every quality gate, but not bit-identical.
-
-    The spot axis is padded to a multiple of 8 (TPU sublane alignment)
-    with zero-coefficient columns so the Pallas streaming kernel is
-    available for EVERY spot count: a zero-coeff column synthesizes
-    phase 0 (cos=1, sin=0), contributes nothing when the farfield
-    vector is zero-padded to match, and the consumers slice spot-axis
-    results back to ``n_spots``.
+    stacks ``(n_tiles, N, PIXEL_TILE)`` — the analog of the reference's
+    cached cupy kernel batches (``_spots.py:595-636``, ``N_BATCH_MAX``
+    cache). The kernel phases ``B^T c`` are loop INVARIANT: caching
+    trades the per-iteration sincos recompute (~2 x N x P
+    transcendentals) for a bandwidth-bound stream of the tiles. Built
+    with the identical einsum/sincos the jnp recompute path runs
+    (bit-for-bit match there).
     """
     D, P = basis.shape
-    N = coeffs.shape[1]
-    N_pad = -(-N // 8) * 8
-    if N_pad != N:
-        coeffs = _pad_to(coeffs, N_pad, 1)
     n_tiles = -(-P // PIXEL_TILE)
     P_pad = n_tiles * PIXEL_TILE
     basis_tiles = jnp.moveaxis(
@@ -201,19 +182,33 @@ def build_kernel_cache(coeffs, basis):
 
 
 def kernel_cache_bytes(n_spots, n_pixels):
-    """HBM footprint of :func:`build_kernel_cache` for a shape
-    (spot axis 8-padded like the builder)."""
+    """Device-memory footprint of :func:`build_kernel_cache` for a shape."""
     n_tiles = -(-n_pixels // PIXEL_TILE)
-    return 2 * 4 * (-(-n_spots // 8) * 8) * n_tiles * PIXEL_TILE
+    return 2 * 4 * n_spots * n_tiles * PIXEL_TILE
+
+
+#: Share of the device's memory limit the kernel cache may take by default.
+CACHE_MEMORY_SHARE = 0.25
+
+
+def cache_budget_mb():
+    """Memory budget (MB) of :func:`build_kernel_cache`: the
+    ``SLMSUITE_TPU_COMPRESSED_CACHE_MB`` environment override (``0``
+    disables the cache), else :data:`CACHE_MEMORY_SHARE` of the default
+    device's ``memory_stats()["bytes_limit"]``, else 0 where the device
+    reports no limit."""
+    import os
+
+    override = os.environ.get("SLMSUITE_TPU_COMPRESSED_CACHE_MB")
+    if override is not None:
+        return float(override)
+    stats = jax.local_devices()[0].memory_stats() or {}
+    return CACHE_MEMORY_SHARE * stats.get("bytes_limit", 0) / 1e6
 
 
 def farfield_to_nearfield_cached(ff_re, ff_im, kc, ks, n_pixels):
-    """Cached-kernel twin of :func:`farfield_to_nearfield`. The cache's
-    spot axis may be 8-padded past the farfield length; the zero-padded
-    farfield makes the pad rows contribute nothing."""
+    """Cached-kernel twin of :func:`farfield_to_nearfield`."""
     scale = 1.0 / np.sqrt(n_pixels)
-    ff_re = _pad_to(ff_re, kc.shape[1], 0)
-    ff_im = _pad_to(ff_im, kc.shape[1], 0)
 
     def tile_fn(_, tile):
         cos, sin = tile
@@ -225,12 +220,8 @@ def farfield_to_nearfield_cached(ff_re, ff_im, kc, ks, n_pixels):
     return nf_re.reshape(-1)[:n_pixels], nf_im.reshape(-1)[:n_pixels]
 
 
-def nearfield_to_farfield_cached(nf_re, nf_im, kc, ks, n_pixels,
-                                 n_spots=None):
-    """Cached-kernel twin of :func:`nearfield_to_farfield` (normalized).
-    ``n_spots`` slices the (possibly 8-padded) spot axis BEFORE the
-    normalization — the pad rows synthesize phase 0 and would otherwise
-    pollute the norm."""
+def nearfield_to_farfield_cached(nf_re, nf_im, kc, ks, n_pixels):
+    """Cached-kernel twin of :func:`nearfield_to_farfield` (normalized)."""
     n_tiles, N, T = kc.shape
     P_pad = n_tiles * T
     nf_re_t = _pad_to(nf_re, P_pad, 0).reshape(n_tiles, T)
@@ -248,25 +239,45 @@ def nearfield_to_farfield_cached(nf_re, nf_im, kc, ks, n_pixels,
     (ff_re, ff_im), _ = jax.lax.scan(
         tile_fn, init, (kc, ks, nf_re_t, nf_im_t)
     )
-    if n_spots is not None:
-        ff_re, ff_im = ff_re[:n_spots], ff_im[:n_spots]
     ff_re = ff_re * scale
     ff_im = ff_im * scale
     norm = jnp.sqrt(jnp.sum(jnp.square(ff_re) + jnp.square(ff_im)))
     return ff_re / norm, ff_im / norm
 
 
-def _fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
+def _amp_replace(re, im, amp, valid, scalar_amp):
+    """Amplitude replacement (``amp * nf/|nf|``) shared by every fused
+    round trip, so the numeric conventions live in one place:
+
+    - zero field -> unit real (the ``atan2(0, 0) = 0`` convention);
+    - ``valid`` masks padded pixels to zero (their synthesized field is
+      a nonzero spot sum the replacement would rescale into garbage);
+    - pre-guarded ``rsqrt`` (checkify-safe: ``rsqrt(0) = inf`` would
+      place a transient ``0 * inf`` NaN in the untaken where-branch).
+
+    Returns the ``(ur, ui)`` replaced nearfield pair.
+    """
+    mag2 = re * re + im * im
+    safe = jax.lax.rsqrt(jnp.where(mag2 > 0, mag2, 1.0))
+    if scalar_amp:
+        inv = valid * safe
+        return (
+            jnp.where(mag2 > 0, re * inv, valid),
+            jnp.where(mag2 > 0, im * inv, 0.0),
+        )
+    inv = valid * amp * safe
+    return (
+        jnp.where(mag2 > 0, re * inv, valid * amp),
+        jnp.where(mag2 > 0, im * inv, 0.0),
+    )
+
+
+def fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
     """Cached-kernel twin of :func:`_fused_iteration_jnp`: identical
     round-trip body, with the per-tile cos/sin read from the cache
     instead of recomputed. One pass over the cache per iteration."""
     n_tiles, N, T = kc.shape
     P_pad = n_tiles * T
-    # The cache's spot axis may be 8-padded; zero-pad the farfield to
-    # match (pad rows then contribute nothing) — outputs are sliced
-    # back to n_spots below.
-    ff_re = _pad_to(ff_re, N, 0)
-    ff_im = _pad_to(ff_im, N, 0)
 
     scalar_amp = jnp.ndim(amp) == 0
     if scalar_amp:
@@ -276,8 +287,6 @@ def _fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
     valid_tiles = (
         jnp.arange(P_pad).reshape(n_tiles, T) < n_pixels
     ).astype(jnp.float32)
-
-    from slmsuite_tpu.ops.pallas_compressed import _amp_replace
 
     def tile_fn(carry, tile):
         acc_re, acc_im = carry
@@ -298,28 +307,10 @@ def _fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
     return fr[:n_spots], fi[:n_spots]
 
 
-def fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels,
-                           use_pallas):
-    """Dispatch the cached-kernel fused round trip: the Pallas streaming
-    kernel on TPU when the blocks fit VMEM (it avoids the per-slice copy
-    the ``lax.scan`` fallback pays); the jnp scan twin otherwise. The
-    cache's spot axis is always 8-aligned (build_kernel_cache pads), so
-    every spot count rides the streaming kernel."""
-    if use_pallas and kc.shape[1] % 8 == 0:
-        from slmsuite_tpu.ops import pallas_compressed as _pc
-
-        if _pc.fused_iter_cached_ok(kc.shape[1], kc.shape[2]):
-            return _pc.fused_iteration_cached(
-                ff_re, ff_im, kc, ks, amp, n_spots, n_pixels
-            )
-    return _fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots,
-                                   n_pixels)
-
-
 def _fused_iteration_jnp(ff_re, ff_im, coeffs, basis, amp, n_spots):
-    """jnp twin of :meth:`pallas_compressed.fused_iteration`: one
-    transform round trip with amplitude replacement, sharing a single
-    phase/sincos evaluation per pixel tile. Returns the unnormalized
+    """One transform round trip with amplitude replacement, sharing a
+    single phase/sincos evaluation per pixel tile (jnp twin of
+    :meth:`pallas_compressed.fused_iteration`). Returns the unnormalized
     next-farfield pair."""
     D, P = basis.shape
     n_tiles = -(-P // PIXEL_TILE)
@@ -340,8 +331,6 @@ def _fused_iteration_jnp(ff_re, ff_im, coeffs, basis, amp, n_spots):
     valid_tiles = (
         jnp.arange(P_pad).reshape(n_tiles, PIXEL_TILE) < P
     ).astype(jnp.float32)
-
-    from slmsuite_tpu.ops.pallas_compressed import _amp_replace
 
     def tile_fn(carry, tile):
         acc_re, acc_im = carry
@@ -392,15 +381,12 @@ def apply_compressed_mraf_mix(ffp_re, ffp_im, ff_re, ff_im, consts,
 
 
 def fused_iteration(ff_re, ff_im, coeffs, basis, amp, n_spots, use_pallas):
-    """Dispatch the fused round trip (Pallas on TPU when the spot count
-    allows the in-VMEM cos/sin pair; jnp twin otherwise)."""
+    """Dispatch the fused round trip: the Triton-route kernels when
+    ``use_pallas``, the jnp twin otherwise."""
     if use_pallas:
         from slmsuite_tpu.ops import pallas_compressed as _pc
 
-        if _pc.fused_iter_tile(-(-n_spots // 8) * 8) is not None:
-            return _pc.fused_iteration(
-                ff_re, ff_im, coeffs, basis, amp, n_spots
-            )
+        return _pc.fused_iteration(ff_re, ff_im, coeffs, basis, amp, n_spots)
     return _fused_iteration_jnp(ff_re, ff_im, coeffs, basis, amp, n_spots)
 
 
@@ -435,13 +421,11 @@ class CompressedGSConfig:
     #: constraint keeps the raw farfield at noise spots, optionally
     #: scaled by ``consts["mraf_k"]``, and zeroes null spots).
     mraf: bool = False
-    #: Stream the precomputed cos/sin kernel tiles from HBM
+    #: Stream the precomputed cos/sin kernel tiles from device memory
     #: (``consts["kc_tiles"]/["ks_tiles"]``, :func:`build_kernel_cache`)
     #: instead of recomputing the sincos every iteration. Enabled by the
-    #: hologram when the cache fits the HBM budget; bit-identical to the
-    #: jnp recompute path, f32-ulp-level vs the Pallas recompute kernel
-    #: (whose minimax sincos differs from the cache's jnp build — see
-    #: :func:`build_kernel_cache`).
+    #: hologram when the cache fits its memory budget; bit-identical to
+    #: the jnp recompute path.
     kernel_cache: bool = False
 
     @property
@@ -667,7 +651,6 @@ def make_compressed_carry_step(config: CompressedGSConfig):
             next_re, next_im = fused_iteration_cached(
                 ffp_re, ffp_im, consts["kc_tiles"], consts["ks_tiles"],
                 consts["amp"], config.n_spots, config.n_pixels,
-                config.use_pallas,
             )
         else:
             next_re, next_im = fused_iteration(
@@ -713,7 +696,7 @@ def _compiled_run(config, n_iterations):
         if config.kernel_cache:
             ff0_re, ff0_im = nearfield_to_farfield_cached(
                 nf_re, nf_im, consts["kc_tiles"], consts["ks_tiles"],
-                config.n_pixels, n_spots=config.n_spots,
+                config.n_pixels,
             )
         else:
             ff0_re, ff0_im = n2f(

@@ -43,9 +43,9 @@ class GSState(NamedTuple):
     """
     Scan carry: everything that evolves across GS iterations.
 
-    All leaves are real-valued: some TPU runtimes cannot transfer complex
-    arrays to/from the host, so complex quantities live only inside the
-    jitted step (``zero_weights`` is carried as a (2, H, W) re/im pair).
+    All leaves are real-valued: complex quantities live only inside the
+    jitted step (``zero_weights`` is carried as a (2, H, W) re/im pair),
+    so host transfers never move complex arrays.
     """
 
     psi: jnp.ndarray            # (Hs, Ws) folded nearfield phase
@@ -93,12 +93,14 @@ class GSConfig:
     sim_cam_sat: float = 0.0         # camera saturation level (counts)
     sim_truncates: bool = False      # camera dtype is integer (floor counts)
     sim_shape_padded: tuple = ()     # camera FFT canvas shape
-    #: Pallas-FFT contraction precision for THIS compiled run
-    #: ("HIGHEST" | "BF16X3" | "DEFAULT"); None inherits the module
-    #: global (:func:`slmsuite_tpu.ops.pallas_fft.set_kernel_precision`).
-    #: Distinct values compile distinct programs (the field is part of
-    #: the lru_cache key), which is what makes the coarse-then-refine
-    #: precision schedule of :func:`run_gs_scheduled` possible.
+    #: Four-step matmul precision for THIS compiled run ("HIGHEST" |
+    #: "HIGH" | "DEFAULT"; on a GPU "DEFAULT" runs the stage matmuls in
+    #: TF32); None inherits the module global
+    #: (:func:`slmsuite_tpu.ops.fft.set_fft_precision`). Distinct values
+    #: compile distinct programs (the field is part of the lru_cache
+    #: key), which is what makes the coarse-then-refine precision
+    #: schedule of :func:`run_gs_scheduled` possible. The ``"xla"`` FFT
+    #: tier ignores it.
     kernel_precision: str = None
 
     @property
@@ -324,10 +326,8 @@ def _augment_fused_consts(config: GSConfig, consts):
 def _make_fused_step(config: GSConfig):
     """Fully-fused WGS step in CARRY mode: the scan carries the
     rows-transformed field pair in ``state.psi`` (converted at the scan
-    boundaries by :meth:`_compiled_run`); each iteration is two Pallas
-    kernels on TPU (see :meth:`slmsuite_tpu.ops.fft.wgs_carry_step`) —
-    only the carry pair, weights, phase_ff (Kim) and two 4-vectors of
-    partials cross HBM per iteration."""
+    boundaries by :meth:`_compiled_run`); each iteration is one
+    :meth:`slmsuite_tpu.ops.fft.wgs_carry_step`."""
     from slmsuite_tpu.ops import fft as _fft
 
     stats_on = bool(config.stat_groups)
@@ -438,8 +438,8 @@ def _make_fused_step(config: GSConfig):
 
 
 def _make_mraf_fused_step(config: GSConfig):
-    """MRAF carry-mode step: three Pallas kernels + one exact scalar
-    norm sync (see :meth:`slmsuite_tpu.ops.fft.mraf_carry_step`). The
+    """MRAF carry-mode step with one exact scalar norm sync (see
+    :meth:`slmsuite_tpu.ops.fft.mraf_carry_step`). The
     scan carries the rows-transformed field pair in ``state.psi``
     (converted at the scan boundaries by :meth:`_compiled_run`) and the
     weight carry is unnormalized with its norm in ``w_norm`` (finalized
@@ -590,16 +590,14 @@ def make_gs_step(config: GSConfig):
         # Transpose-free hot loop: the farfield lives in the four-step
         # (k1, k2) layout; consts/state were permuted by scramble_consts/
         # _scramble_state. Elementwise constraint + sum-stats are
-        # order-independent. The forward FFT emits (amplitude, phase)
-        # directly — on TPU the polar conversion is fused into the last
-        # Pallas kernel, so the complex farfield never touches HBM.
+        # order-independent.
         from slmsuite_tpu.ops import fft as _fft
 
         def _forward_polar(nearfield):
             return _fft.fft2_scrambled_polar(nearfield.real, nearfield.imag)
 
         def _backward(farfield):
-            re, im = _fft.ifft2_scrambled(farfield.real, farfield.imag)
+            re, im = _fft.ifft2_scrambled_pair(farfield.real, farfield.imag)
             return (re + 1j * im).astype(jnp.complex64)
 
     else:
@@ -758,9 +756,8 @@ def make_gs_step(config: GSConfig):
         # The constraint phase: current angle while unfixed (including the
         # iteration that fixes), stored phase once fixed (ref :1589-1605).
         if full_fuse and not config.mraf:
-            # Backward half fused: the constraint w * e^{i phi}
-            # synthesizes inside the inverse kernel's prologue — the
-            # complex farfield never exists in HBM.
+            # Backward half from the real constraint planes: the complex
+            # farfield is never materialized.
             from slmsuite_tpu.ops import fft as _fft
 
             psi = _fft.wexp_ifft2_scrambled_phase(weights, phase_ff)
@@ -849,7 +846,7 @@ def make_gs_step(config: GSConfig):
 
 
 #: When True, engine runs are instrumented with ``jax.experimental.checkify``
-#: float checks (nan / divide-by-zero) — the TPU analog of the reference's
+#: float checks (nan / divide-by-zero) — the analog of the reference's
 #: numeric sanitization. Enabled for tests via SLMSUITE_TPU_CHECKIFY=1.
 _NUMERIC_CHECKS = False
 
@@ -920,37 +917,42 @@ def _compiled_run(config: GSConfig, n_iterations: int):
 
 def _with_kernel_precision(jitted, config: GSConfig):
     """Pin ``config.kernel_precision`` around every invocation of a
-    compiled run: jax reads the pallas-FFT precision global at TRACE
+    compiled run: the four-step tier reads its precision global at TRACE
     time (the first call), so the pin guarantees the cached executable
     carries the config's precision whatever the global is then. The
     set/restore on warm calls is nanoseconds."""
     if config.kernel_precision is None:
         return jitted
-    from slmsuite_tpu.ops import pallas_fft as PF
+    from slmsuite_tpu.ops import fft as _fft
 
     def run_pinned(state, consts):
-        prior = PF._DOT_PRECISION
-        PF.set_kernel_precision(config.kernel_precision)
+        prior = _fft._PRECISION
+        _fft.set_fft_precision(config.kernel_precision)
         try:
             return jitted(state, consts)
         finally:
-            PF._DOT_PRECISION = prior
+            _fft._PRECISION = prior
 
     return run_pinned
 
 
-#: Scrambled (transpose-free) loop mode: "auto" promotes on TPU, where
-#: the Pallas four-step FFT (ops.pallas_fft) keeps each axis pass to one
-#: HBM round-trip — measured 1192 -> 67 MB bytes-accessed per 2048^2
-#: fft2 vs the einsum path. On CPU (no Pallas TPU kernels) the einsum
-#: scrambled form costs +19% bytes under XLA layout assignment (3463 vs
-#: 2904 MB per WGS step), so "auto" stays natural there. Forcible via
+#: Scrambled (transpose-free) loop mode. "auto" takes the per-platform
+#: default of :data:`_SCRAMBLED_DEFAULT` (off where not listed: on the
+#: CPU the einsum scrambled form costs +19% bytes under XLA layout
+#: assignment, 3463 vs 2904 MB per 2048^2 WGS step). The loop also
+#: needs the four-step ("matmul") FFT tier. Forcible via
 #: set_scrambled_mode(True/False).
 _SCRAMBLED_MODE = "auto"
 
+#: Platforms on which "auto" promotes to the scrambled loop (when the
+#: four-step tier is selected). On an H100 the scrambled loop beat the
+#: natural one within that tier: 0.94 vs 1.22 ms per 2048^2 WGS-Kim
+#: iteration at HIGHEST, 0.84 vs 1.10 ms at TF32.
+_SCRAMBLED_DEFAULT = {"gpu": True}
+
 
 def set_scrambled_mode(enable):
-    """Force the scrambled loop on/off, or ``"auto"`` (TPU only)."""
+    """Force the scrambled loop on/off, or ``"auto"`` (platform default)."""
     global _SCRAMBLED_MODE
     _SCRAMBLED_MODE = enable
 
@@ -958,12 +960,11 @@ def set_scrambled_mode(enable):
 def _can_scramble(config: GSConfig):
     """Scrambled loop: enabled + matmul FFT + four-step-splittable shape
     (all powers of two, plus balanced composites like 1536/1920/3072)."""
-    import jax as _jax
-
     from slmsuite_tpu.ops import fft as _fft
+    from slmsuite_tpu.ops.platform import accelerator
 
     if _SCRAMBLED_MODE == "auto":
-        enabled = _jax.default_backend() not in ("cpu",)
+        enabled = _SCRAMBLED_DEFAULT.get(accelerator(), False)
     else:
         enabled = bool(_SCRAMBLED_MODE)
     return (
@@ -1062,26 +1063,23 @@ def run_gs_scheduled(config: GSConfig, state: GSState, consts: dict,
                      coarse: str = "DEFAULT"):
     """
     Run ``n_iterations`` of GS/WGS with a PRECISION SCHEDULE: the first
-    ``n_iterations - n_refine`` iterations use the ``coarse`` Pallas-FFT
-    contraction precision (``"DEFAULT"`` = one bf16 MXU pass per stage
-    dot, ~6x less MXU time than ``"HIGHEST"``), and the final
-    ``n_refine`` iterations run at ``"HIGHEST"`` to polish the converged
-    phase/weights to full f32 quality.
+    ``n_iterations - n_refine`` iterations use the ``coarse`` four-step
+    matmul precision (``"DEFAULT"``: TF32 stage matmuls on a GPU), and
+    the final ``n_refine`` iterations run at ``"HIGHEST"`` to polish the
+    converged phase/weights to full f32 quality.
 
     Why this is sound: WGS is a fixed-point iteration — each step
     replaces the nearfield amplitude and rebuilds the weights from the
     CURRENT farfield, so transform error in early iterations perturbs
     the trajectory but not the fixed point; the HIGHEST refine
-    iterations re-converge the phase at full accuracy. The quality gate
-    lives in :func:`bench.attest_schedule_quality` (on-chip) and
-    ``tests/test_tpu_kernels.py`` (trajectory plumbing): final
-    efficiency/uniformity must match the all-HIGHEST run within golden
-    tolerance. Analog of the reference's own accuracy/speed guidance at
-    ``/root/reference/slmsuite/holography/algorithms/_hologram.py:378-384``
-    (shape/precision trades), rebuilt as a TPU MXU-pass schedule.
+    iterations re-converge the phase at full accuracy. The trajectory
+    plumbing is pinned by ``TestScheduledEngine``. Analog of the
+    reference's own accuracy/speed guidance (reference
+    ``_hologram.py:378-384``, shape/precision trades).
 
-    On CPU (or any backend where the Pallas kernels are inactive) the
-    schedule degenerates to two plain scans — numerically identical to
+    The precision only reaches the ``"matmul"`` FFT tier. With the
+    ``"xla"`` tier (``jnp.fft``, cuFFT on a GPU) or on the CPU the
+    schedule is a no-op: two plain scans, numerically identical to
     :func:`run_gs`, so the API is portable.
 
     Returns ``(state, stats)`` with stats shape
@@ -1108,10 +1106,9 @@ def run_gs_scheduled(config: GSConfig, state: GSState, consts: dict,
     if n_refine:
         # Pin the refine phase to HIGHEST explicitly (unless the caller
         # set a precision on the config): with kernel_precision=None it
-        # would inherit the pallas_fft module GLOBAL, so a user-level
-        # set_kernel_precision("DEFAULT") would silently degrade the
-        # "HIGHEST refine" this function documents and the bench
-        # artifact reports.
+        # would inherit the ops.fft module GLOBAL, so a user-level
+        # set_fft_precision("DEFAULT") would silently degrade the
+        # "HIGHEST refine" this function documents.
         c_fine = (
             run_config
             if run_config.kernel_precision is not None
@@ -1209,7 +1206,8 @@ def run_gs_batch(config, states, consts, n_iterations, mesh=None,
 
     With ``mesh``, the batch axis shards over ``axis_name`` — B
     holograms optimize on B/n_devices chips each with NO collectives
-    (embarrassingly parallel; ICI silent). B must divide evenly.
+    (embarrassingly parallel; no traffic between the cards). B must
+    divide evenly.
 
     Returns ``(states, stats)`` with stats shape
     ``(B, n_iterations, len(stat_groups) + 1, 4)``.
@@ -1218,7 +1216,7 @@ def run_gs_batch(config, states, consts, n_iterations, mesh=None,
 
     scramble = _can_scramble(config)
     # Pin the config's precision like the single-instance runs: the
-    # batch jit traces the same pallas entry points and would otherwise
+    # batch jit traces the same four-step matmuls and would otherwise
     # silently ignore config.kernel_precision.
     run = _with_kernel_precision(
         _compiled_batch_run(config, int(n_iterations), scramble), config
@@ -1254,7 +1252,7 @@ def run_gs_chunked(config, state, consts, n_iterations, chunk=None,
 
     ``n_refine``/``coarse`` apply the :func:`run_gs_scheduled` precision
     schedule across the chunked run: every iteration before the final
-    ``n_refine`` uses the ``coarse`` Pallas-FFT contraction precision,
+    ``n_refine`` uses the ``coarse`` four-step matmul precision,
     and the last ``n_refine`` polish at the config's own precision
     (chunks are split at the boundary). ``n_refine=None`` disables.
 

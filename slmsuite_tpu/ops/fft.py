@@ -1,29 +1,29 @@
 r"""
-MXU matmul-based 2D FFT (four-step / Bailey algorithm).
+2D FFT tiers for the propagation pair.
 
-XLA's native TPU FFT runs on the VPU and is slow for the large
-power-of-two transforms holography needs (measured ~29 ms per 2048²
-fft+ifft pair on v5e — ~35x off the chip's matmul roofline). This module
-reformulates each 1D FFT of length :math:`N = N_1 N_2` as two dense DFT
-matmuls plus a twiddle multiply:
+Two tiers compute the same orthonormal transform:
+
+- ``"xla"``: ``jnp.fft.fft2`` — cuFFT on a GPU, XLA's own FFT on the
+  CPU. Any size.
+- ``"matmul"``: the four-step (Bailey) algorithm, which writes each 1D
+  FFT of length :math:`N = N_1 N_2` as two dense DFT matmuls plus a
+  twiddle multiply:
 
 .. math::
     X[k_1 + k_2 N_1] = \sum_{n_2} \omega_{N_2}^{n_2 k_2}
         \left[ \omega_N^{n_2 k_1}
         \sum_{n_1} \omega_{N_1}^{n_1 k_1} x[n_1 N_2 + n_2] \right]
 
-which costs :math:`N(N_1 + N_2)` complex MACs instead of :math:`N^2` —
-and, critically, runs as large batched matmuls on the MXU. For
-:math:`N = 2048 = 64 \times 32` this is ~14x fewer FLOPs than a dense
-DFT and keeps the systolic array busy; measured ~20-30x faster than the
-XLA FFT at holography sizes.
+  which costs :math:`N(N_1 + N_2)` complex MACs instead of :math:`N^2`
+  and runs as batched matmuls. Complex arithmetic is decomposed into
+  real matmuls with ``preferred_element_type=float32`` at the precision
+  set by :meth:`set_fft_precision`: ``"HIGHEST"`` (true float32, the
+  default) or ``"DEFAULT"`` (TF32 on a GPU's tensor cores). Sizes with
+  no balanced factorization fall back to ``"xla"``.
 
-Complex arithmetic is decomposed into real matmuls with
-``preferred_element_type=float32`` and HIGHEST precision (6 bf16 passes)
-so accuracy stays at float32 round-off (~1e-6 relative).
-
-Used by :mod:`slmsuite_tpu.ops.propagation` when the backend is
-``"matmul"`` (the default on TPU; XLA's FFT remains the default on CPU).
+The default tier per platform is :data:`_DEFAULT_BACKEND` (see
+:meth:`get_fft_backend`); :meth:`set_fft_backend` overrides it.
+Used by :mod:`slmsuite_tpu.ops.propagation`.
 """
 
 import functools
@@ -38,22 +38,37 @@ __all__ = ["fft2", "ifft2", "set_fft_backend", "get_fft_backend"]
 # Backend selection.
 # --------------------------------------------------------------------------
 
-_BACKEND = None  # lazy: "matmul" on tpu, "xla" elsewhere
+_BACKEND = None  # lazy: the platform default on first use
+
+#: Default FFT tier per platform (:func:`slmsuite_tpu.ops.platform.accelerator`);
+#: platforms not listed take ``"xla"``. None is listed: through
+#: ``SpotHologram.optimize("WGS-Kim")`` on an H100 (400 W limit), cuFFT
+#: took 0.30 ms per iteration at 2048^2 and 0.086 ms at 1024^2, the
+#: four-step tier 0.84-1.22 ms and 0.14-0.36 ms (TF32 or float32,
+#: scrambled or natural).
+_DEFAULT_BACKEND = {}
 
 
 def get_fft_backend():
-    """Current 2D-FFT backend: ``"matmul"`` (MXU four-step) or ``"xla"``."""
+    """Current 2D-FFT backend: ``"xla"`` (``jnp.fft``) or ``"matmul"``
+    (einsum four-step)."""
     global _BACKEND
     if _BACKEND is None:
-        _BACKEND = "matmul" if jax.default_backend() not in ("cpu",) else "xla"
+        from slmsuite_tpu.ops.platform import accelerator
+
+        _BACKEND = _DEFAULT_BACKEND.get(accelerator(), "xla")
     return _BACKEND
 
 
 def set_fft_backend(backend):
-    """Override the FFT backend (``"matmul"`` or ``"xla"``)."""
+    """Override the FFT backend (``"matmul"`` or ``"xla"``). A change
+    clears JAX's compiled-program caches, so programs compiled for the
+    other tier retrace on their next call."""
     global _BACKEND
     if backend not in ("matmul", "xla"):
         raise ValueError(f"Unknown FFT backend '{backend}'.")
+    if backend != _BACKEND:
+        jax.clear_caches()
     _BACKEND = backend
 
 
@@ -69,7 +84,7 @@ def _split(n):
     the layout every committed plan/kernel was validated on). Other
     composite sizes take the divisor pair closest to ``sqrt(n)`` — the
     four-step algebra is factorization-generic, so 1536 (48x32),
-    1920 (48x40), 3072 (64x48), ... ride the same MXU path. Sizes with
+    1920 (48x40), 3072 (64x48), ... ride the same matmul path. Sizes with
     no balanced factorization (primes and near-primes, where one factor
     would exceed 16x the other) raise — callers fall back to the XLA
     FFT, which handles any size.
@@ -117,18 +132,18 @@ def _plan(n, inverse):
     return n1, n2, w1, tw, w2
 
 
-#: Matmul precision for the FFT stages. HIGHEST = full f32 (6 bf16
-#: passes, default); HIGH = 3 passes, measured only marginally faster and
-#: ~100x less accurate; DEFAULT = single bf16 pass, measured ~2x faster
-#: per fft2 but degrades converged WGS quality (2048^2 32x32 WGS-Kim:
-#: uniformity 0.9977 -> 0.9819, std_err 1.0e-3 -> 5.3e-3) — a speed knob
-#: for quality-tolerant workloads. Settable via :meth:`set_fft_precision`;
-#: note engines jit-compiled before the change keep their old precision.
+#: Matmul precision of the four-step stages (read at trace time, so a
+#: change applies to programs traced afterwards; the engine keys its
+#: compiled runs on ``GSConfig.kernel_precision`` and pins this value
+#: around each run). ``"HIGHEST"`` is true float32; ``"DEFAULT"`` lets a
+#: GPU run float32 matmuls in TF32 (about three decimal digits per
+#: product). The ``"xla"`` tier ignores it.
 _PRECISION = "HIGHEST"
 
 
 def set_fft_precision(precision):
-    """Set the matmul-FFT precision: ``"HIGHEST"`` (default), ``"HIGH"``, or ``"DEFAULT"``."""
+    """Set the four-step matmul precision: ``"HIGHEST"`` (default),
+    ``"HIGH"``, or ``"DEFAULT"`` (TF32 on a GPU)."""
     global _PRECISION
     if precision not in ("HIGH", "HIGHEST", "DEFAULT"):
         raise ValueError(f"Unknown precision '{precision}'.")
@@ -139,11 +154,9 @@ def _cmatmul(ar, ai, br, bi, subscript):
     """
     Complex einsum via four real f32 matmuls.
 
-    Measured alternatives that did NOT help under current XLA (cost
-    analysis, 2048^2 WGS step): stacking the data re/im into one batched
-    operand (2 matmuls) costs +30% bytes — the stack materializes a copy
-    while XLA already fuses the four-einsum reads; a 3-multiply Karatsuba
-    form saves FLOPs the MXU has to spare but adds elementwise passes.
+    Stacking the data re/im into one batched operand (2 matmuls) costs
+    +30% bytes in XLA's cost analysis (the stack materializes a copy
+    while XLA already fuses the four-einsum reads).
     """
     kwargs = dict(
         precision=getattr(jax.lax.Precision, _PRECISION),
@@ -213,12 +226,11 @@ def _matmul_shape(shape):
 
 def fft2(x, norm="ortho"):
     """
-    2D FFT over the last two axes. Uses the MXU four-step algorithm on TPU
-    (``"matmul"`` backend, any size with a balanced factorization — all
-    powers of two, plus 1536, 1920, 3072, ...) or ``jnp.fft.fft2``
-    (``"xla"``, any size — also the automatic fallback for unbalanced
-    sizes such as primes, which the reference supports with a speed
-    warning). Complex in/out; call inside jit.
+    2D FFT over the last two axes: ``jnp.fft.fft2`` (``"xla"`` backend,
+    any size) or the four-step matmul algorithm (``"matmul"``, any size
+    with a balanced factorization — all powers of two, plus 1536, 1920,
+    3072, ...; unbalanced sizes such as primes fall back to ``"xla"``).
+    Complex in/out; call inside jit.
     """
     if get_fft_backend() == "xla" or not _matmul_shape(x.shape):
         return jnp.fft.fft2(x, norm=norm)
@@ -352,140 +364,64 @@ def ifft2_scrambled_pair(xr, xi):
     return xr * scale, xi * scale
 
 
-@functools.lru_cache(maxsize=256)
-def _pallas_len_ok(n):
-    """Whether length ``n`` is Pallas-kernel-friendly: 128-divisible
-    (the kernel grids tile each axis into 128-wide blocks) AND both
-    four-step factors 8-aligned (the kernels reshape the sublane axis to
-    ``(n1, n2, L)`` and transpose mid-axes — Mosaic's f32 tile is
-    (8, 128), so unaligned factors like 640 = 32 x 20 risk lowering
-    failures the validated shapes never exercise)."""
-    if n <= 0 or n % 128 != 0 or not _split_ok(n):
-        return False
-    n1, n2 = _split(n)
-    return n1 % 8 == 0 and n2 % 8 == 0
-
-
-def _use_pallas_scrambled(shape):
-    """Pallas kernels need >=128 lanes per block, 128-divisible dims,
-    and 8-aligned split factors (:meth:`_pallas_len_ok`). Other
-    splittable shapes take the einsum tier."""
-    return (
-        jax.default_backend() not in ("cpu",)
-        and _pallas_len_ok(shape[-2])
-        and _pallas_len_ok(shape[-1])
-    )
-
-
-def fft2_scrambled(xr, xi):
-    """Scrambled forward fft2: Pallas kernels on TPU, einsum elsewhere."""
-    if _use_pallas_scrambled(xr.shape):
-        from slmsuite_tpu.ops.pallas_fft import fft2_scrambled_pallas
-
-        return fft2_scrambled_pallas(xr, xi)
-    return fft2_scrambled_pair(xr, xi)
-
-
-def ifft2_scrambled(xr, xi):
-    """Scrambled inverse ifft2: Pallas kernels on TPU, einsum elsewhere."""
-    if _use_pallas_scrambled(xr.shape):
-        from slmsuite_tpu.ops.pallas_fft import ifft2_scrambled_pallas
-
-        return ifft2_scrambled_pallas(xr, xi)
-    return ifft2_scrambled_pair(xr, xi)
+# --------------------------------------------------------------------------
+# Scrambled-layout compositions used by the engines.
+# --------------------------------------------------------------------------
 
 
 def fft2_scrambled_polar(xr, xi):
-    """
-    Scrambled forward fft2 returning ``(amplitude, phase)``: on TPU the
-    polar conversion is fused into the final Pallas kernel's epilogue
-    (the complex farfield never hits HBM); einsum + abs/arctan2 elsewhere.
-    """
-    if _use_pallas_scrambled(xr.shape):
-        from slmsuite_tpu.ops.pallas_fft import fft2_scrambled_polar_pallas
-
-        return fft2_scrambled_polar_pallas(xr, xi)
+    """Scrambled forward fft2 returning ``(amplitude, phase)``."""
     re, im = fft2_scrambled_pair(xr, xi)
     return jnp.sqrt(jnp.square(re) + jnp.square(im)), jnp.arctan2(im, re)
 
 
 def fft2_scrambled_polar_from_phase(psi, amp):
-    """
-    Scrambled forward polar FFT of ``amp * exp(i psi)``: fully fused on
-    TPU (no complex nearfield or farfield in HBM); composed einsum path
-    elsewhere.
-    """
-    if _use_pallas_scrambled(psi.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.fft2_scrambled_polar_from_phase(psi, amp)
-    re, im = fft2_scrambled_pair(amp * jnp.cos(psi), amp * jnp.sin(psi))
-    return jnp.sqrt(jnp.square(re) + jnp.square(im)), jnp.arctan2(im, re)
+    """Scrambled forward polar FFT of ``amp * exp(i psi)``."""
+    return fft2_scrambled_polar(amp * jnp.cos(psi), amp * jnp.sin(psi))
 
 
 def ifft2_scrambled_phase(xr, xi):
-    """
-    Scrambled inverse FFT returning only the result's phase (the GS psi
-    update): fused on TPU, composed einsum elsewhere.
-    """
-    if _use_pallas_scrambled(xr.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.ifft2_scrambled_phase(xr, xi)
+    """Scrambled inverse FFT returning only the result's phase (the GS
+    psi update)."""
     re, im = ifft2_scrambled_pair(xr, xi)
     return jnp.arctan2(im, re)
 
 
-def wexp_ifft2_scrambled_phase(weights, phase):
-    """
-    ``arg(ifft2_scrambled(weights * e^{i phase}))`` — the backward half
-    of every non-fused full-fuse-geometry WGS/GS step. On TPU the
-    constraint synthesis runs in the inverse kernel's prologue, so the
-    complex farfield never exists in HBM; elsewhere it composes the
-    einsum pieces.
-    """
-    if _use_pallas_scrambled(weights.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.wexp_ifft2_scrambled_phase(weights, phase)
-    re, im = ifft2_scrambled_pair(
-        weights * jnp.cos(phase), weights * jnp.sin(phase)
-    )
-    return jnp.arctan2(im, re)
-
-
 def wexp_ifft2_scrambled(weights, phase):
-    """
-    Complex ``ifft2_scrambled(weights * e^{i phase})`` (ortho) — like
-    :meth:`wexp_ifft2_scrambled_phase` but returning the full complex
-    nearfield pair (the multiplane backward needs the per-plane complex
-    contribution for the weighted sum). On TPU the constraint synthesis
-    fuses into the inverse cols kernel; elsewhere it composes the
-    einsum pieces. ``phase`` must be bounded (atan2 output).
-    """
-    if _use_pallas_scrambled(weights.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.wexp_ifft2_scrambled(weights, phase)
+    """Complex ``ifft2_scrambled(weights * e^{i phase})`` (ortho) as a
+    re/im pair (the multiplane backward needs the per-plane complex
+    contribution for the weighted sum)."""
     return ifft2_scrambled_pair(
         weights * jnp.cos(phase), weights * jnp.sin(phase)
     )
 
 
+def wexp_ifft2_scrambled_phase(weights, phase):
+    """``arg(ifft2_scrambled(weights * e^{i phase}))`` — the backward
+    half of the non-carry full-fuse-geometry WGS/GS step."""
+    re, im = wexp_ifft2_scrambled(weights, phase)
+    return jnp.arctan2(im, re)
+
+
 # --------------------------------------------------------------------------
-# Fused WGS forward half: FFT + stats partials + weight update + Kim
-# select + amplitude constraint, all in the scrambled layout. The jnp
-# implementation below defines the semantics; the Pallas twin
-# (``pallas_fft.wgs_fused_forward_pallas``) keeps everything on-chip.
-# Both use deferred-by-one weight normalization and the Parseval
-# feedback norm — see the design block in :mod:`ops.pallas_fft`.
+# Carry-mode WGS step: the loop carries the ROWS-TRANSFORMED field pair
+# (gr, gi) instead of psi, merging the inverse-rows phase extraction and
+# the next iteration's nearfield synthesis into one round trip with a
+# single normalization (amp * Z/|Z|); the Kim phase store rides as a
+# unit-phasor pair, so no transcendental (atan2/sincos) runs inside the
+# loop: the farfield direction is F * rsqrt(|F|^2). Both use
+# deferred-by-one weight normalization and the Parseval feedback norm.
+# psi and the phase_ff angle exist only at the entry/exit boundaries.
+#
+# Layout of the carry: last (W) axis four-step-scrambled, first (H) axis
+# natural.
 # --------------------------------------------------------------------------
 
 _WGS_NEG_FILL = -3.0e38
 
 
-def _wgs_stats_jnp(f, target, mask, scalars, norm_sq, stats_on):
-    """Stats partials (sums, maxs) shared by every fused-step jnp twin."""
+def _wgs_stats(f, target, mask, scalars, norm_sq, stats_on):
+    """Stats partials (sums, maxs) shared by the carry steps."""
     neg = jnp.float32(_WGS_NEG_FILL)
     if stats_on:
         fsq = jnp.square(f)
@@ -513,150 +449,8 @@ def _wgs_stats_jnp(f, target, mask, scalars, norm_sq, stats_on):
     return sums, maxs
 
 
-def _wgs_epilogue_jnp(f, theta, weights, phase_ff, target, mask, scalars,
-                      *, rule, kim, stats_on):
-    """Shared fused-WGS epilogue: weight correction (deferred norm), Kim
-    phase select, amplitude constraint, stats partials. Returns
-    ``(re, im, wout, pff_out, sums, maxs)``."""
-    c = _wgs_correction_jnp(f, target, scalars, rule)
-
-    uw = weights * c
-    uw = jnp.where(jnp.isnan(uw), jnp.float32(1e-4), uw)
-    wout = jnp.where(scalars["apply_update"] > 0, uw * scalars["inv_prev_norm"], weights)
-
-    if kim:
-        phase = jnp.where(scalars["use_theta"] > 0, theta, phase_ff)
-        pff_out = phase
-    else:
-        phase = theta
-        pff_out = None
-    re = wout * jnp.cos(phase)
-    im = wout * jnp.sin(phase)
-
-    norm_sq = jnp.sum(jnp.square(wout))
-    sums, maxs = _wgs_stats_jnp(f, target, mask, scalars, norm_sq, stats_on)
-    return re, im, wout, pff_out, sums, maxs
-
-
-def _wgs_fused_forward_jnp(psi, amp, weights, phase_ff, target, mask,
-                           scalars, *, rule, kim, stats_on):
-    """Reference (einsum/XLA) implementation of the fused forward half."""
-    re0 = amp * jnp.cos(psi)
-    im0 = amp * jnp.sin(psi)
-    fr, fi = fft2_scrambled_pair(re0, im0)
-    f = jnp.sqrt(jnp.square(fr) + jnp.square(fi))
-    theta = jnp.arctan2(fi, fr)
-    return _wgs_epilogue_jnp(
-        f, theta, weights, phase_ff, target, mask, scalars,
-        rule=rule, kim=kim, stats_on=stats_on,
-    )
-
-
-def wgs_fused_forward(psi, amp, weights, phase_ff, target, mask, scalars,
-                      *, rule, kim, stats_on):
-    """
-    Fused forward half of one WGS iteration (scrambled layout).
-
-    Parameters
-    ----------
-    psi : (Hs, Ws) folded nearfield phase (natural order).
-    amp : scalar or (Hs, Ws) nearfield amplitude.
-    weights, target : (H, W) scrambled-layout arrays.
-    phase_ff : (H, W) stored farfield phase (Kim) or None.
-    mask : (H, W) float32 0/1 stats mask (or None when ``stats_on`` off).
-    scalars : dict of dynamic jnp scalars — ``inv_prev_norm``,
-        ``apply_update``, ``use_theta`` (Kim), ``feedback_exponent``,
-        ``feedback_factor``, ``inv_fnorm``, ``inv_tsum``, ``inv_fsum``.
-    rule : static — "leonardo" | "kim" | "wu" | "tanh".
-
-    Returns
-    -------
-    ``(re, im, weights_out, phase_ff_out | None, sums (4,), maxs (4,))``
-    where the constrained farfield (re, im) feeds
-    :meth:`ifft2_scrambled_phase`, sums = [overlap, err_sum, err_sq_sum,
-    norm_sq] and maxs = [err_max, u_max, -err_min, -u_min].
-    """
-    if _use_pallas_scrambled(psi.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.wgs_fused_forward_pallas(
-            psi, amp, weights, phase_ff, target, mask, scalars,
-            rule=rule, kim=kim, stats_on=stats_on,
-        )
-    return _wgs_fused_forward_jnp(
-        psi, amp, weights, phase_ff, target, mask, scalars,
-        rule=rule, kim=kim, stats_on=stats_on,
-    )
-
-
-def _mraf_fused_step_jnp(psi, amp, weights, phase_ff, target, mask,
-                         mcode, scalars, *, rule, kim, stats_on):
-    """Reference (einsum/XLA) implementation of the MRAF semi-fused step.
-
-    ``weights`` is the UNNORMALIZED carry; the exact current norm is
-    computed internally (the one reduction MRAF fundamentally needs
-    between the forward transform and the constraint)."""
-    re0 = amp * jnp.cos(psi)
-    im0 = amp * jnp.sin(psi)
-    fr, fi = fft2_scrambled_pair(re0, im0)
-    f = jnp.sqrt(jnp.square(fr) + jnp.square(fi))
-    theta = jnp.arctan2(fi, fr)
-
-    uw = weights * _wgs_correction_jnp(f, target, scalars, rule)
-    uw = jnp.where(jnp.isnan(uw), jnp.float32(1e-4), uw)
-    # Keep the carry bounded via the previous norm; the mix renormalizes
-    # exactly below.
-    uw = jnp.where(
-        scalars["apply_update"] > 0, uw * scalars["inv_prev_norm"], weights
-    )
-    norm_sq = jnp.sum(jnp.square(uw))
-    inv_norm = jax.lax.rsqrt(norm_sq)
-
-    if kim:
-        phase = jnp.where(scalars["use_theta"] > 0, theta, phase_ff)
-        pff_out = phase
-    else:
-        phase = theta
-        pff_out = None
-
-    k = scalars["mraf_factor"]
-    wn = uw * inv_norm
-    sig = mcode == 1.0
-    noi = mcode == 2.0
-    cre = jnp.where(sig, wn * jnp.cos(phase), jnp.where(noi, k * f * jnp.cos(theta), 0.0))
-    cim = jnp.where(sig, wn * jnp.sin(phase), jnp.where(noi, k * f * jnp.sin(theta), 0.0))
-    nr, ni = ifft2_scrambled_pair(cre, cim)
-
-    neg = jnp.float32(_WGS_NEG_FILL)
-    if stats_on:
-        fsq = jnp.square(f)
-        tsq = jnp.square(target)
-        overlap = jnp.sum(target * f)
-        err_full = tsq * scalars["inv_tsum"] - fsq * scalars["inv_fsum"]
-        err = err_full * mask
-        on = mask > 0
-        u = fsq / jnp.where(on, tsq, 1.0)
-        sums = jnp.stack(
-            [overlap, jnp.sum(err), jnp.sum(jnp.square(err)), norm_sq]
-        )
-        maxs = jnp.stack(
-            [
-                jnp.max(jnp.where(on, err_full, neg)),
-                jnp.max(jnp.where(on, u, neg)),
-                jnp.max(jnp.where(on, -err_full, neg)),
-                jnp.max(jnp.where(on, -u, neg)),
-            ]
-        )
-    else:
-        zero = jnp.float32(0.0)
-        sums = jnp.stack([zero, zero, zero, norm_sq])
-        maxs = jnp.full((4,), neg)
-    return jnp.arctan2(ni, nr), uw, pff_out, sums, maxs
-
-
-def _wgs_correction_jnp(f, target, scalars, rule):
-    """jnp twin of the kernel's ``_weight_correction`` (shared by the
-    fused WGS and MRAF semi-fused twins)."""
+def _wgs_correction(f, target, scalars, rule):
+    """Elementwise WGS weight correction factor of the carry steps."""
     p = scalars["feedback_exponent"]
     if rule in ("leonardo", "kim"):
         on = target != 0
@@ -674,101 +468,42 @@ def _wgs_correction_jnp(f, target, scalars, rule):
     return jnp.where(jnp.isinf(c), 1.0, c)
 
 
-def mraf_fused_step(psi, amp, weights, phase_ff, target, mask, mcode,
-                    scalars, *, rule, kim, stats_on):
-    """
-    One complete MRAF WGS iteration (scrambled layout), psi in -> psi
-    out. ``mcode`` is the farfield region code plane (1 = signal,
-    2 = noise, 0 = zero); ``scalars["mraf_factor"]`` the noise retention
-    factor. The weight carry is unnormalized (norm = sqrt(sums[3])).
-
-    On TPU this runs as FOUR Pallas kernels with one exact scalar norm
-    sync between the forward and inverse column passes (see
-    :meth:`slmsuite_tpu.ops.pallas_fft.mraf_fused_step_pallas`); the
-    complex farfield never exists in HBM. Elsewhere it composes the jnp
-    twins.
-    """
-    if _use_pallas_scrambled(psi.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.mraf_fused_step_pallas(
-            psi, amp, weights, phase_ff, target, mask, mcode, scalars,
-            rule=rule, kim=kim, stats_on=stats_on,
-        )
-    return _mraf_fused_step_jnp(
-        psi, amp, weights, phase_ff, target, mask, mcode, scalars,
-        rule=rule, kim=kim, stats_on=stats_on,
-    )
-
-
-def wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scalars,
-                   *, rule, kim, stats_on):
-    """
-    One complete WGS iteration (scrambled layout), psi in -> psi out:
-    :meth:`wgs_fused_forward` + inverse transform + phase extraction.
-
-    On TPU this runs as THREE Pallas kernels — the middle one performs
-    the forward column pass, the whole WGS epilogue, and the inverse
-    column pass on the same VMEM-resident block (the axis passes of a
-    separable transform commute), so the constrained farfield never
-    crosses HBM. Elsewhere it composes the jnp twins.
-
-    Returns ``(psi_out, weights_out, phase_ff_out | None, sums, maxs)``
-    with the same conventions as :meth:`wgs_fused_forward`.
-    """
-    if _use_pallas_scrambled(psi.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.wgs_fused_step_pallas(
-            psi, amp, weights, phase_ff, target, mask, scalars,
-            rule=rule, kim=kim, stats_on=stats_on,
-        )
-    re, im, wout, pff_out, sums, maxs = _wgs_fused_forward_jnp(
-        psi, amp, weights, phase_ff, target, mask, scalars,
-        rule=rule, kim=kim, stats_on=stats_on,
-    )
-    nr, ni = ifft2_scrambled_pair(re, im)
-    return jnp.arctan2(ni, nr), wout, pff_out, sums, maxs
-
-
-# --------------------------------------------------------------------------
-# Carry-mode WGS step: the loop carries the ROWS-TRANSFORMED field pair
-# (gr, gi) instead of psi, merging the inverse-rows phase extraction and
-# the next iteration's nearfield synthesis into one round trip with a
-# single normalization (amp * Z/|Z|) — and the Kim phase store rides as
-# a UNIT-PHASOR pair, so not a single transcendental (atan2/sincos)
-# runs inside the loop: the farfield direction is F * rsqrt(|F|^2). On
-# TPU this is TWO Pallas kernels per iteration (16 HBM plane crossings
-# for Kim, 12 without a phase store, vs the three-kernel step's 16+).
-# psi and the phase_ff angle exist only at the entry/exit boundaries. Semantics twins below; kernels in
-# :mod:`slmsuite_tpu.ops.pallas_fft`.
-#
-# Layout of the carry: last (W) axis four-step-scrambled, first (H) axis
-# natural — exactly the three-kernel step's K1 output.
-# --------------------------------------------------------------------------
-
-
-def _wgs_carry_entry_jnp(psi, amp):
-    """psi -> rows-scrambled carry of ``e^{i psi}`` (scalar amp folds
-    into the step's post scale) or ``amp * e^{i psi}`` (array amp).
-    Unnormalized, matching the raw Pallas stage transforms."""
+def wgs_carry_entry(psi, amp):
+    """psi (natural, unbounded range) -> rows-scrambled carry of
+    ``e^{i psi}`` (a scalar amp folds into the step's post scale) or
+    ``amp * e^{i psi}`` (array amp). Unnormalized: the step folds the
+    1/sqrt(HW) scale into its post scale."""
     c, s = jnp.cos(psi), jnp.sin(psi)
     if jnp.ndim(amp) != 0:
         c, s = amp * c, amp * s
     return _fft_last_axis_scrambled(c, s, psi.shape[-1])
 
 
-def _wgs_carry_exit_jnp(gr, gi):
+def wgs_carry_exit(gr, gi):
     """Rows-scrambled carry -> psi (normalization drops out of atan2)."""
     zr, zi = _ifft_last_axis_scrambled(gr, gi, gr.shape[-1])
     return jnp.arctan2(zi, zr)
 
 
-def _wgs_carry_step_jnp(gr, gi, amp, weights, phase_ff, target, mask,
-                        scalars, *, rule, kim, stats_on):
-    """Reference (einsum/XLA) implementation of the carry-mode step.
-    ``phase_ff`` is the Kim unit-phasor pair ``(pffr, pffi)`` or None
-    (see :meth:`wgs_carry_step`)."""
+def wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scalars,
+                   *, rule, kim, stats_on):
+    """
+    One complete WGS iteration on the rows-transformed carry: forward
+    column pass, weight update, Kim select and amplitude constraint,
+    inverse column and row passes, nearfield amplitude replacement, and
+    the next forward row pass. The Kim phase store rides as a unit-phasor
+    pair ``phase_ff = (pffr, pffi)`` (:meth:`wgs_phasor_entry`), so the
+    step evaluates no transcendental.
+
+    ``scalars`` holds dynamic jnp scalars: ``inv_prev_norm``,
+    ``apply_update``, ``use_theta`` (Kim), ``feedback_exponent``,
+    ``feedback_factor``, ``inv_fnorm``, ``inv_tsum``, ``inv_fsum``.
+    ``rule`` is static: "leonardo" | "kim" | "wu" | "tanh".
+
+    Returns ``(gr_out, gi_out, weights_out, phase_ff_out | None, sums,
+    maxs)`` with sums = [overlap, err_sum, err_sq_sum, norm_sq] and
+    maxs = [err_max, u_max, -err_min, -u_min].
+    """
     H, W = gr.shape
     scalar_amp = jnp.ndim(amp) == 0
     post = jnp.float32(1.0 / np.sqrt(H * W)) * (amp if scalar_amp else 1.0)
@@ -779,7 +514,7 @@ def _wgs_carry_step_jnp(gr, gi, amp, weights, phase_ff, target, mask,
     f2 = jnp.square(fr) + jnp.square(fi)
     f = jnp.sqrt(f2) * post
 
-    c = _wgs_correction_jnp(f, target, scalars, rule)
+    c = _wgs_correction(f, target, scalars, rule)
     uw = weights * c
     uw = jnp.where(jnp.isnan(uw), jnp.float32(1e-4), uw)
     wout = jnp.where(
@@ -804,7 +539,7 @@ def _wgs_carry_step_jnp(gr, gi, amp, weights, phase_ff, target, mask,
     im = wout * sphi
 
     norm_sq = jnp.sum(jnp.square(wout))
-    sums, maxs = _wgs_stats_jnp(f, target, mask, scalars, norm_sq, stats_on)
+    sums, maxs = _wgs_stats(f, target, mask, scalars, norm_sq, stats_on)
 
     # Inverse both axes (unnormalized), replace the nearfield amplitude,
     # re-transform the rows axis.
@@ -823,9 +558,19 @@ def _wgs_carry_step_jnp(gr, gi, amp, weights, phase_ff, target, mask,
     return gr2, gi2, wout, pff_out, sums, maxs
 
 
-def _mraf_carry_step_jnp(gr, gi, amp, weights, phase_ff, target, mask,
-                         mcode, zw, scalars, *, rule, kim, stats_on, zero):
-    """Reference (einsum/XLA) implementation of the MRAF carry-mode step."""
+def mraf_carry_step(gr, gi, amp, weights, phase_ff, target, mask, mcode,
+                    zw, scalars, *, rule, kim, stats_on, zero):
+    """
+    One complete MRAF WGS iteration on the rows-transformed carry (see
+    :meth:`wgs_carry_step`), with one exact weight-norm reduction
+    between the forward and inverse column passes. ``mcode`` is the
+    farfield region code plane (1 = signal, 2 = noise, 0 = zero);
+    ``zero=True`` folds the evolving zero-region weights ``zw`` into the
+    mix.
+
+    Returns ``(gr', gi', uw, phase_ff_out | None, zw_out | None, sums,
+    maxs)`` — ``uw`` unnormalized with its norm in ``sums[3]``.
+    """
     H, W = gr.shape
     scalar_amp = jnp.ndim(amp) == 0
     post = jnp.float32(1.0 / np.sqrt(H * W)) * (amp if scalar_amp else 1.0)
@@ -836,7 +581,7 @@ def _mraf_carry_step_jnp(gr, gi, amp, weights, phase_ff, target, mask,
     f2 = jnp.square(fr) + jnp.square(fi)
     f = jnp.sqrt(f2)
 
-    uw = weights * _wgs_correction_jnp(f, target, scalars, rule)
+    uw = weights * _wgs_correction(f, target, scalars, rule)
     uw = jnp.where(jnp.isnan(uw), jnp.float32(1e-4), uw)
     uw = jnp.where(
         scalars["apply_update"] > 0, uw * scalars["inv_prev_norm"], weights
@@ -886,52 +631,8 @@ def _mraf_carry_step_jnp(gr, gi, amp, weights, phase_ff, target, mask,
         ui = jnp.where(mag2 > 0, zi * inv, 0.0)
     gr2, gi2 = _fft_last_axis_scrambled(ur, ui, W)
 
-    sums, maxs = _wgs_stats_jnp(f, target, mask, scalars, norm_sq, stats_on)
+    sums, maxs = _wgs_stats(f, target, mask, scalars, norm_sq, stats_on)
     return gr2, gi2, uw, pff_out, zw_out, sums, maxs
-
-
-def mraf_carry_step(gr, gi, amp, weights, phase_ff, target, mask, mcode,
-                    zw, scalars, *, rule, kim, stats_on, zero):
-    """
-    One complete MRAF WGS iteration on the rows-transformed carry
-    (see :meth:`wgs_carry_step`): THREE Pallas kernels + one exact
-    scalar norm sync on TPU; jnp twin elsewhere. The kernels exchange
-    the scaled complex farfield, so non-Kim mixes run without
-    transcendentals; ``zero=True`` folds the evolving zero-region
-    weights into the mix kernel.
-
-    Returns ``(gr', gi', uw, phase_ff_out | None, zw_out | None, sums,
-    maxs)`` — ``uw`` unnormalized with its norm in ``sums[3]``.
-    """
-    if _use_pallas_scrambled(gr.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.mraf_carry_step_pallas(
-            gr, gi, amp, weights, phase_ff, target, mask, mcode, zw,
-            scalars, rule=rule, kim=kim, stats_on=stats_on, zero=zero,
-        )
-    return _mraf_carry_step_jnp(
-        gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, scalars,
-        rule=rule, kim=kim, stats_on=stats_on, zero=zero,
-    )
-
-
-def wgs_carry_entry(psi, amp):
-    """psi (natural, unbounded range) -> rows-transformed field carry."""
-    if _use_pallas_scrambled(psi.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.wgs_carry_entry_pallas(psi, amp)
-    return _wgs_carry_entry_jnp(psi, amp)
-
-
-def wgs_carry_exit(gr, gi):
-    """Rows-transformed field carry -> psi."""
-    if _use_pallas_scrambled(gr.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.wgs_carry_exit_pallas(gr, gi)
-    return _wgs_carry_exit_jnp(gr, gi)
 
 
 def wgs_phasor_entry(phase_ff):
@@ -943,33 +644,3 @@ def wgs_phasor_entry(phase_ff):
 def wgs_phasor_exit(pffr, pffi):
     """Unit-phasor pair -> angle plane (scan exit)."""
     return jnp.arctan2(pffi, pffr)
-
-
-def wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scalars,
-                   *, rule, kim, stats_on):
-    """
-    One complete WGS iteration on the rows-transformed carry.
-
-    On TPU this is TWO Pallas kernels: the cols round trip (forward cols
-    FFT + fused WGS epilogue + inverse cols FFT) and the rows round trip
-    (inverse rows FFT + amplitude replacement + forward rows FFT); no
-    complex plane, |F|, arg(F) or psi ever crosses HBM — and the Kim
-    phase store rides as a unit-phasor pair ``phase_ff = (pffr, pffi)``
-    (:meth:`wgs_phasor_entry`), so the step runs without a single
-    transcendental. Elsewhere the jnp twin. Same scalar/stat conventions
-    as :meth:`wgs_fused_forward`.
-
-    Returns ``(gr_out, gi_out, weights_out, phase_ff_out | None, sums,
-    maxs)``.
-    """
-    if _use_pallas_scrambled(gr.shape):
-        from slmsuite_tpu.ops import pallas_fft as _pf
-
-        return _pf.wgs_carry_step_pallas(
-            gr, gi, amp, weights, phase_ff, target, mask, scalars,
-            rule=rule, kim=kim, stats_on=stats_on,
-        )
-    return _wgs_carry_step_jnp(
-        gr, gi, amp, weights, phase_ff, target, mask, scalars,
-        rule=rule, kim=kim, stats_on=stats_on,
-    )

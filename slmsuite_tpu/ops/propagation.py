@@ -3,8 +3,8 @@ Shift-free centered Fourier propagation.
 
 The reference computes the centered transform as
 ``fftshift(fft2(fftshift(x)))`` (``_hologram.py:1038-1073``) — four full
-memory reorderings per GS iteration on top of the FFTs. On TPU, HBM
-bandwidth is the bottleneck, so we eliminate them algebraically.
+memory reorderings per GS iteration on top of the FFTs. The loop is
+bound by device-memory bandwidth, so we eliminate them algebraically.
 
 **The identity.** For even dimensions, with :math:`C_{ij} = (-1)^{i+j}`
 (the checkerboard) and :math:`s = (-1)^{(H+W)/2}`:
@@ -118,7 +118,7 @@ def build_folded_nearfield(psi, amp, shape, kernel=None):
 def nearfield_to_farfield(folded_nearfield):
     """
     Forward propagation: orthonormal 2D FFT of the folded nearfield canvas
-    (MXU matmul-FFT on TPU; see :mod:`slmsuite_tpu.ops.fft`).
+    (tier chosen by :mod:`slmsuite_tpu.ops.fft`).
     """
     from slmsuite_tpu.ops import fft as _fft
 
@@ -181,8 +181,8 @@ def compute_farfield(psi, amp, shape, slm_shape, kernel=None):
     return unfold_farfield(nearfield_to_farfield(nearfield))
 
 
-# --- Host-transfer helpers. Some TPU runtimes cannot move complex arrays
-# --- across the host boundary; split/combine through real pairs instead.
+# --- Host-transfer helpers: complex arrays cross the host boundary as
+# --- real pairs (split/combine).
 
 
 @jax.jit

@@ -3,7 +3,7 @@ Fused WGS weight-update rules.
 
 One pure elementwise function implements all five weighting methods; under
 ``jit`` XLA fuses the whole update (normalize, correct, apply, renormalize)
-into a single pass over the weights — the TPU equivalent of the
+into a single pass over the weights — the equivalent of the
 reference's ``update_weights_generic`` CUDA kernel (``cuda.cu:390-435``)
 and its cupy twin (``_hologram.py:1822-1879``).
 

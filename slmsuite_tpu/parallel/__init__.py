@@ -1,6 +1,6 @@
 """
 Multi-chip scale-out: device meshes, a distributed 2D FFT (all_to_all
-transposes over ICI), and sharded batched hologram optimization.
+transposes between the cards), and sharded batched hologram optimization.
 
 The reference is single-device (SURVEY.md section 2.7); here the batch/
 plane axis of holography shards over a ``"data"`` mesh axis and very

@@ -9,7 +9,7 @@ typically hundreds). Sharding the **pixel axis** across the mesh makes
   its own pixel slab; zero communication), and
 - ``nearfield -> farfield`` a local partial reduction followed by ONE
   ``psum`` of an ``(N,)`` vector per direction — a few kilobytes over
-  ICI per iteration, negligible against the local matmuls.
+  the interconnect per iteration, negligible against the local matmuls.
 
 Spot-space state (weights, farfield phase, Kim flags) is replicated;
 every device redundantly runs the tiny ``(N,)`` weight update instead of

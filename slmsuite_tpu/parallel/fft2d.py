@@ -1,10 +1,10 @@
 r"""
 Distributed 2D FFT: row/column decomposition over a mesh axis.
 
-For fields too large for one chip's HBM (or to cut per-chip time), the
-2D FFT splits as: local 1D FFTs along the unsharded axis, a global
-transpose (``all_to_all`` over ICI), local 1D FFTs along the other axis,
-and a transpose back. This is the standard "pencil" decomposition,
+For fields too large for one card's memory (or to cut per-card time),
+the 2D FFT splits as: local 1D FFTs along the unsharded axis, a global
+transpose (``all_to_all`` over NVLink between the cards), local 1D FFTs
+along the other axis, and a transpose back. This is the standard "pencil" decomposition,
 expressed with ``shard_map`` so XLA schedules the collectives.
 
 The sequence-parallel analog for holography (SURVEY.md section 5): the
@@ -20,9 +20,9 @@ from jax import shard_map
 
 
 def _local_fft_rows(x, inverse):
-    """Local 1D ortho FFT along the last axis: the MXU four-step matmul
-    formulation on TPU (any balanced-splittable size), ``jnp.fft``
-    elsewhere."""
+    """Local 1D ortho FFT along the last axis: the four-step matmul
+    formulation on the ``"matmul"`` FFT tier (any balanced-splittable
+    size), ``jnp.fft`` otherwise."""
     from slmsuite_tpu.ops import fft as _fft
 
     n = x.shape[-1]

@@ -6,7 +6,7 @@ natural data-parallel axis of holography: ``B`` child holograms share one
 nearfield phase; each plane runs its own farfield constraint; the
 complex nearfields (with per-plane propagation kernels removed) are
 weight-summed back into the shared phase. On a mesh, planes shard over
-the ``"data"`` axis and the nearfield sum is a ``psum`` over ICI — the
+the ``"data"`` axis and the nearfield sum is a ``psum`` over NVLink — the
 one real collective in the hot loop.
 """
 
@@ -72,16 +72,15 @@ def make_batched_gs_step(config: BatchedGSConfig, axis_name=None):
     if config.scrambled:
         from slmsuite_tpu.ops import fft as _fft
 
-    # Non-MRAF scrambled planes synthesize the constrained farfield
-    # inside the fused inverse kernel (plane_backward_wexp); MRAF's
-    # region mixing needs the explicit complex farfield.
+    # Non-MRAF scrambled planes build the constrained farfield from its
+    # real planes (plane_backward_wexp); MRAF's region mixing needs the
+    # explicit complex farfield.
     use_wexp = config.scrambled and not config.mraf
 
     def plane_forward(psi, kernel, amp, amp_canvas):
-        """Returns (amp_ff, theta). In the scrambled (Pallas) mode the
-        forward rides the fused from-phase kernel: neither the complex
-        nearfield nor the complex farfield ever materializes in HBM —
-        only the padded phase canvas (1 plane) crosses per plane."""
+        """Returns (amp_ff, theta). In the scrambled mode the forward
+        starts from the padded phase canvas, without a complex
+        nearfield."""
         if config.scrambled:
             total = psi + kernel if config.has_kernel else psi
             phase = jax.lax.dynamic_update_slice(
@@ -171,7 +170,7 @@ def make_batched_gs_step(config: BatchedGSConfig, axis_name=None):
 
     def plane_backward(constrained, kernel, plane_weight):
         if config.scrambled:
-            re, im = _fft.ifft2_scrambled(constrained.real, constrained.imag)
+            re, im = _fft.ifft2_scrambled_pair(constrained.real, constrained.imag)
             nearfield = (re + 1j * im).astype(jnp.complex64)
         else:
             nearfield = farfield_to_nearfield(constrained)
@@ -357,8 +356,8 @@ def run_batched_gs(config, psi, weights, consts, n_iterations, mesh=None,
     Run ``n_iterations`` of the batched multiplane loop.
 
     Single-device when ``mesh`` is ``None``; otherwise planes shard over
-    ``axis_name`` with the nearfield sum as a ``psum`` collective. On TPU
-    the per-plane FFTs auto-promote to the scrambled Pallas path
+    ``axis_name`` with the nearfield sum as a ``psum`` collective. The
+    per-plane FFTs promote to the scrambled path
     (targets/weights permuted here, transparently to the caller).
 
     ``start_iteration``/``phase_ff``/``fixed`` RESUME a previous run —

@@ -1,18 +1,18 @@
 r"""
 Row-sharded full-plane GS: farfields larger than one chip.
 
-For computational holography whose k-space exceeds a single chip's HBM
+For computational holography whose k-space exceeds a single card's memory
 (e.g. 16384\ :sup:`2`\ +), the whole GS iteration runs with the plane's
 **rows sharded** over a mesh axis:
 
 - forward/backward transforms are the distributed pencil FFT
-  (:mod:`slmsuite_tpu.parallel.fft2d`): local MXU matmul FFTs along the
+  (:mod:`slmsuite_tpu.parallel.fft2d`): local FFTs along the
   unsharded axis + one tiled ``all_to_all`` transpose per axis;
 - the amplitude constraint, MRAF masking, and weight corrections are
   elementwise on each shard;
 - the weight renormalization, statistics, and Kim triggers reduce with
   ``psum``/``pmin``/``pmax`` — a handful of scalars per iteration over
-  ICI.
+  NVLink.
 
 Requires full-plane geometry (farfield shape == SLM shape), so the
 nearfield is exactly ``amp * e^{i (psi + kernel)}`` per shard and the

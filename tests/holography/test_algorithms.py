@@ -510,34 +510,6 @@ class TestScrambledEngine:
         )
         np.testing.assert_allclose(sstats, nstats, atol=2e-4, rtol=0)
 
-    def test_non_pow2_pallas_interpret_parity(self):
-        """The Pallas carry-mode kernels themselves handle a non-pow2
-        384^2 (split 24x16; 128-divisible grids) — integrated engine run
-        with the Pallas tier forced in interpreter mode vs the natural
-        engine. Measured: psi 2.4e-5, stats 8.9e-5, weights 1e-7."""
-        from slmsuite_tpu.ops import engine as E
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        config, consts, psi0, target = self._base(N=384)
-        prev_gate = F._use_pallas_scrambled
-        PF._INTERPRET = True
-        F._use_pallas_scrambled = lambda shape: True
-        try:
-            (ns, nstats), (ss, sstats) = self._run_both(
-                config, consts, psi0, target, n=6
-            )
-        finally:
-            PF._INTERPRET = False
-            F._use_pallas_scrambled = prev_gate
-        np.testing.assert_allclose(
-            np.asarray(ss.psi), np.asarray(ns.psi), atol=5e-4, rtol=0
-        )
-        np.testing.assert_allclose(sstats, nstats, atol=5e-4, rtol=0)
-        np.testing.assert_allclose(
-            np.asarray(ss.weights), np.asarray(ns.weights), atol=1e-5, rtol=0
-        )
-
     def test_spot_feedback_parity(self):
         import jax.numpy as jnp
 
@@ -690,283 +662,6 @@ class TestScrambledEngine:
             np.asarray(state.weights), w0, atol=1e-6, rtol=0
         )
 
-    def test_fused_pallas_kernel_interpret(self):
-        """The Pallas fused-forward kernel matches the jnp twin
-        (interpreter mode; Mosaic constraints don't apply on CPU)."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        N = 128
-        rng = np.random.default_rng(7)
-        psi = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        target = np.zeros((N, N), np.float32)
-        target[rng.integers(0, N, 12), rng.integers(0, N, 12)] = 1.0
-        target /= np.sqrt((target**2).sum())
-        weights = target.copy()
-        phase_ff = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        mask = (target != 0).astype(np.float32)
-
-        fsum = 1.0  # amp = 1/N over N^2 pixels.
-        scalars = {
-            "inv_prev_norm": jnp.float32(1.0),
-            "apply_update": jnp.float32(1.0),
-            "use_theta": jnp.float32(1.0),
-            "feedback_exponent": jnp.float32(0.8),
-            "feedback_factor": jnp.float32(0.2),
-            "inv_fnorm": jnp.float32(1.0 / np.sqrt(fsum)),
-            "inv_tsum": jnp.float32(1.0 / (target**2).sum()),
-            "inv_fsum": jnp.float32(1.0 / fsum),
-        }
-        args = (
-            jnp.asarray(psi), jnp.float32(1.0 / N), jnp.asarray(weights),
-            jnp.asarray(phase_ff), jnp.asarray(target), jnp.asarray(mask),
-            scalars,
-        )
-        for rule, kim in (("kim", True), ("leonardo", False),
-                          ("wu", False), ("tanh", False)):
-            ref = F._wgs_fused_forward_jnp(
-                *args, rule=rule, kim=kim, stats_on=True
-            )
-            PF._INTERPRET = True
-            try:
-                got = PF.wgs_fused_forward_pallas(
-                    *args, rule=rule, kim=kim, stats_on=True
-                )
-            finally:
-                PF._INTERPRET = False
-            names = ("re", "im", "weights", "phase_ff", "sums", "maxs")
-            for name, a, b in zip(names, ref, got):
-                if a is None:
-                    assert b is None
-                    continue
-                np.testing.assert_allclose(
-                    np.asarray(b), np.asarray(a), atol=2e-5, rtol=1e-4,
-                    err_msg=f"{rule}/{name}",
-                )
-
-    def test_fused_step_warm_start_psi_range(self):
-        """The fused step's nearfield synthesis must be exact for
-        UNBOUNDED psi: iteration-0 enters with the folded initial phase
-        (random init reaches 2*pi; quadratic/blaze warm starts span many
-        radians). Regression for the bounded-_sincos range bug: the jnp
-        twin uses true sin/cos, so this catches a divergent polynomial."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        N = 128
-        rng = np.random.default_rng(23)
-        # Quadratic warm start + checkerboard fold: psi spans ~[-2, 45] rad.
-        yy, xx = np.mgrid[0:N, 0:N].astype(np.float32)
-        psi = (
-            5e-3 * ((yy - N / 2) ** 2 + (xx - N / 2) ** 2)
-            + np.pi * ((yy + xx) % 2)
-        ).astype(np.float32)
-        assert np.ptp(psi) > 10 * np.pi  # the range the bug destroyed
-        target = np.zeros((N, N), np.float32)
-        target[rng.integers(0, N, 12), rng.integers(0, N, 12)] = 1.0
-        target /= np.sqrt((target**2).sum())
-        phase_ff = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        mask = (target != 0).astype(np.float32)
-        scalars = {
-            "inv_prev_norm": jnp.float32(1.0),
-            "apply_update": jnp.float32(1.0),
-            "use_theta": jnp.float32(1.0),
-            "feedback_exponent": jnp.float32(0.8),
-            "feedback_factor": jnp.float32(0.2),
-            "inv_fnorm": jnp.float32(1.0),
-            "inv_tsum": jnp.float32(1.0 / (target**2).sum()),
-            "inv_fsum": jnp.float32(1.0),
-        }
-        args = (
-            jnp.asarray(psi), jnp.float32(1.0 / N), jnp.asarray(target.copy()),
-            jnp.asarray(phase_ff), jnp.asarray(target), jnp.asarray(mask),
-            scalars,
-        )
-        re, im, wout, pff, sums, maxs = F._wgs_fused_forward_jnp(
-            *args, rule="kim", kim=True, stats_on=True
-        )
-        nr, ni = F.ifft2_scrambled_pair(re, im)
-        nr, ni = np.asarray(nr), np.asarray(ni)
-        ref_psi = np.arctan2(ni, nr)
-        PF._INTERPRET = True
-        try:
-            got = PF.wgs_fused_step_pallas(
-                *args, rule="kim", kim=True, stats_on=True
-            )
-        finally:
-            PF._INTERPRET = False
-        # psi is ill-conditioned where the back-propagated field is near
-        # zero; compare where the amplitude is above its median. (Before
-        # the fix the divergent polynomial was wrong by O(1) everywhere.)
-        mag = np.hypot(nr, ni)
-        sel = mag > np.median(mag)
-        diff = np.angle(np.exp(1j * (np.asarray(got[0]) - ref_psi)))
-        assert np.max(np.abs(diff[sel])) < 1e-3
-        np.testing.assert_allclose(
-            np.asarray(got[3]), np.asarray(sums), atol=3e-5, rtol=1e-4
-        )
-
-    def test_sincos_reduced_unbounded_range(self):
-        """_sincos_reduced stays at the f32 noise floor out to +-1e4 rad
-        (blaze/lens warm starts span hundreds of radians)."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        x = np.concatenate([
-            np.linspace(-1e4, 1e4, 20001, dtype=np.float32),
-            np.linspace(-4 * np.pi, 4 * np.pi, 4001, dtype=np.float32),
-        ])
-        s, c = PF._sincos_reduced(jnp.asarray(x))
-        # Error budget: |k|*1e-7 rad residual from the two-term period
-        # split, ~1e-7 from the minimax pair.
-        np.testing.assert_allclose(np.asarray(s), np.sin(x.astype(np.float64)), atol=2e-3)
-        np.testing.assert_allclose(np.asarray(c), np.cos(x.astype(np.float64)), atol=2e-3)
-        small = np.abs(x) < 10
-        np.testing.assert_allclose(
-            np.asarray(s)[small], np.sin(x.astype(np.float64))[small], atol=1e-6
-        )
-
-    def test_fused_step_pallas_kernel_interpret(self):
-        """The three-kernel Pallas full step (cols round trip) matches the
-        jnp twin composition psi-for-psi (interpreter mode)."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        N = 128
-        rng = np.random.default_rng(11)
-        psi = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        target = np.zeros((N, N), np.float32)
-        target[rng.integers(0, N, 12), rng.integers(0, N, 12)] = 1.0
-        target /= np.sqrt((target**2).sum())
-        phase_ff = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        mask = (target != 0).astype(np.float32)
-
-        scalars = {
-            "inv_prev_norm": jnp.float32(1.0),
-            "apply_update": jnp.float32(1.0),
-            "use_theta": jnp.float32(1.0),
-            "feedback_exponent": jnp.float32(0.8),
-            "feedback_factor": jnp.float32(0.2),
-            "inv_fnorm": jnp.float32(1.0),
-            "inv_tsum": jnp.float32(1.0 / (target**2).sum()),
-            "inv_fsum": jnp.float32(1.0),
-        }
-        args = (
-            jnp.asarray(psi), jnp.float32(1.0 / N), jnp.asarray(target.copy()),
-            jnp.asarray(phase_ff), jnp.asarray(target), jnp.asarray(mask),
-            scalars,
-        )
-
-        def ref_step(rule, kim):
-            re, im, wout, pff, sums, maxs = F._wgs_fused_forward_jnp(
-                *args, rule=rule, kim=kim, stats_on=True
-            )
-            nr, ni = F.ifft2_scrambled_pair(re, im)
-            return np.arctan2(np.asarray(ni), np.asarray(nr)), wout, pff, sums, maxs
-
-        for rule, kim in (("kim", True), ("leonardo", False),
-                          ("wu", False), ("tanh", False)):
-            ref = ref_step(rule, kim)
-            PF._INTERPRET = True
-            try:
-                got = PF.wgs_fused_step_pallas(
-                    *args, rule=rule, kim=kim, stats_on=True
-                )
-            finally:
-                PF._INTERPRET = False
-            names = ("psi", "weights", "phase_ff", "sums", "maxs")
-            for name, a, b in zip(names, ref, got):
-                if a is None:
-                    assert b is None
-                    continue
-                # psi is ill-conditioned where the back-propagated field
-                # is near zero: allow the engine parity suite's phase
-                # tolerance there.
-                atol = 2e-4 if name == "psi" else 3e-5
-                np.testing.assert_allclose(
-                    np.asarray(b), np.asarray(a), atol=atol, rtol=1e-4,
-                    err_msg=f"{rule}/{name}",
-                )
-
-    def test_carry_step_pallas_kernel_interpret(self):
-        """The two-kernel carry-mode Pallas step (cols round trip + rows
-        round trip with amplitude replacement) matches the jnp twin
-        composition carry-for-carry, through entry and exit (interpreter
-        mode)."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        N = 128
-        rng = np.random.default_rng(31)
-        psi = rng.uniform(-2 * np.pi, 2 * np.pi, (N, N)).astype(np.float32)
-        target = np.zeros((N, N), np.float32)
-        target[rng.integers(0, N, 12), rng.integers(0, N, 12)] = 1.0
-        target /= np.sqrt((target**2).sum())
-        phase_ff = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        mask = (target != 0).astype(np.float32)
-        amp_plane = (0.5 + rng.uniform(0, 1, (N, N))).astype(np.float32)
-
-        scalars = {
-            "inv_prev_norm": jnp.float32(1.0),
-            "apply_update": jnp.float32(1.0),
-            "use_theta": jnp.float32(1.0),
-            "feedback_exponent": jnp.float32(0.8),
-            "feedback_factor": jnp.float32(0.2),
-            "inv_fnorm": jnp.float32(1.0),
-            "inv_tsum": jnp.float32(1.0 / (target**2).sum()),
-            "inv_fsum": jnp.float32(1.0),
-        }
-        pff_pair = (
-            jnp.cos(jnp.asarray(phase_ff)), jnp.sin(jnp.asarray(phase_ff))
-        )
-        for amp in (jnp.float32(1.0 / N), jnp.asarray(amp_plane)):
-            for rule, kim in (("kim", True), ("leonardo", False),
-                              ("wu", False), ("tanh", False)):
-                args = (
-                    jnp.asarray(target.copy()), pff_pair,
-                    jnp.asarray(target), jnp.asarray(mask), scalars,
-                )
-                gr, gi = F._wgs_carry_entry_jnp(jnp.asarray(psi), amp)
-                ref = F._wgs_carry_step_jnp(
-                    gr, gi, amp, *args, rule=rule, kim=kim, stats_on=True
-                )
-                ref_psi = np.asarray(F._wgs_carry_exit_jnp(ref[0], ref[1]))
-                PF._INTERPRET = True
-                try:
-                    pgr, pgi = PF.wgs_carry_entry_pallas(jnp.asarray(psi), amp)
-                    got = PF.wgs_carry_step_pallas(
-                        pgr, pgi, amp, *args, rule=rule, kim=kim, stats_on=True
-                    )
-                    got_psi = np.asarray(PF.wgs_carry_exit_pallas(got[0], got[1]))
-                finally:
-                    PF._INTERPRET = False
-                tag = f"{rule}/amp{jnp.ndim(amp)}"
-                # The carry planes are FFT-scaled; compare relative.
-                scale = np.abs(np.asarray(ref[0])).max()
-                np.testing.assert_allclose(
-                    np.asarray(got[0]) / scale, np.asarray(ref[0]) / scale,
-                    atol=3e-5, err_msg=f"{tag}/gr",
-                )
-                np.testing.assert_allclose(
-                    np.asarray(got[2]), np.asarray(ref[2]),
-                    atol=3e-5, rtol=1e-4, err_msg=f"{tag}/weights",
-                )
-                np.testing.assert_allclose(
-                    np.asarray(got[4]), np.asarray(ref[4]),
-                    atol=3e-5, rtol=1e-4, err_msg=f"{tag}/sums",
-                )
-                diff = np.angle(np.exp(1j * (got_psi - ref_psi)))
-                assert np.percentile(np.abs(diff), 99) < 2e-3, tag
-
     def test_nogrette_parity(self):
         """The scrambled Nogrette step (generic polar-forward +
         constraint-fused inverse; the rule's plane-mean reduction stays
@@ -981,151 +676,6 @@ class TestScrambledEngine:
             np.asarray(ss.weights), np.asarray(ns.weights), atol=1e-5, rtol=0
         )
         np.testing.assert_allclose(sstats, nstats, atol=1e-4, rtol=0)
-
-    def test_mraf_step_pallas_kernel_interpret(self):
-        """The four-kernel Pallas MRAF semi-fused step matches its jnp
-        twin psi-for-psi (interpreter mode)."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        N = 128
-        rng = np.random.default_rng(13)
-        psi = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        target = np.zeros((N, N), np.float32)
-        target[rng.integers(0, N, 12), rng.integers(0, N, 12)] = 1.0
-        target /= np.sqrt((target**2).sum())
-        phase_ff = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        mask = (target != 0).astype(np.float32)
-        noise = np.zeros((N, N), bool)
-        noise[: N // 4] = True
-        mcode = (
-            ((target > 0) & ~noise).astype(np.float32)
-            + 2.0 * noise.astype(np.float32)
-        )
-
-        scalars = {
-            "inv_prev_norm": jnp.float32(1.0),
-            "apply_update": jnp.float32(1.0),
-            "use_theta": jnp.float32(1.0),
-            "feedback_exponent": jnp.float32(0.8),
-            "feedback_factor": jnp.float32(0.2),
-            "inv_fnorm": jnp.float32(1.0),
-            "inv_tsum": jnp.float32(1.0 / (target**2).sum()),
-            "inv_fsum": jnp.float32(1.0),
-            "mraf_factor": jnp.float32(0.4),
-        }
-        args = (
-            jnp.asarray(psi), jnp.float32(1.0 / N), jnp.asarray(target.copy()),
-            jnp.asarray(phase_ff), jnp.asarray(target), jnp.asarray(mask),
-            jnp.asarray(mcode), scalars,
-        )
-
-        for rule, kim in (("kim", True), ("leonardo", False), ("wu", False)):
-            ref = F._mraf_fused_step_jnp(*args, rule=rule, kim=kim, stats_on=True)
-            PF._INTERPRET = True
-            try:
-                got = PF.mraf_fused_step_pallas(
-                    *args, rule=rule, kim=kim, stats_on=True
-                )
-            finally:
-                PF._INTERPRET = False
-            names = ("psi", "weights", "phase_ff", "sums", "maxs")
-            for name, a, b in zip(names, ref, got):
-                if a is None:
-                    assert b is None
-                    continue
-                # psi is ill-conditioned where the back-propagated field
-                # is near zero (MRAF zeroes whole regions): allow the
-                # same phase tolerance as the engine parity suite there.
-                atol = 2e-4 if name == "psi" else 3e-5
-                np.testing.assert_allclose(
-                    np.asarray(b), np.asarray(a), atol=atol, rtol=1e-4,
-                    err_msg=f"{rule}/{name}",
-                )
-
-    def test_mraf_carry_step_pallas_kernel_interpret(self):
-        """The MRAF carry-mode Pallas step (complex-farfield mix, fused
-        zero_factor) matches the jnp twin (interpreter mode)."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        N = 128
-        rng = np.random.default_rng(41)
-        psi = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        target = np.zeros((N, N), np.float32)
-        target[rng.integers(20, N - 20, 15), rng.integers(20, N - 20, 15)] = 1.0
-        target /= np.sqrt((target**2).sum())
-        # Region codes: signal at spots, noise ring near the border,
-        # zero elsewhere.
-        mcode = np.where(target > 0, 1.0, 0.0).astype(np.float32)
-        border = np.zeros((N, N), bool)
-        border[:8] = border[-8:] = True
-        mcode[border] = 2.0
-        mask = (target != 0).astype(np.float32)
-        phase_ff = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        zw = rng.normal(0, 1e-3, (2, N, N)).astype(np.float32)
-
-        scalars = {
-            "inv_prev_norm": jnp.float32(1.0),
-            "apply_update": jnp.float32(1.0),
-            "use_theta": jnp.float32(1.0),
-            "feedback_exponent": jnp.float32(0.8),
-            "feedback_factor": jnp.float32(0.1),
-            "inv_fnorm": jnp.float32(1.0),
-            "inv_tsum": jnp.float32(1.0 / (target**2).sum()),
-            "inv_fsum": jnp.float32(1.0),
-            "mraf_factor": jnp.float32(0.5),
-            "zero_factor": jnp.float32(0.25),
-        }
-        gr, gi = F._wgs_carry_entry_jnp(jnp.asarray(psi), jnp.float32(1.0 / N))
-        for rule, kim, zero in (
-            ("leonardo", False, False),
-            ("kim", True, False),
-            ("leonardo", False, True),
-            ("kim", True, True),
-        ):
-            pff_pair = (
-                jnp.cos(jnp.asarray(phase_ff)), jnp.sin(jnp.asarray(phase_ff))
-            )
-            args = (
-                gr, gi, jnp.float32(1.0 / N), jnp.asarray(target.copy()),
-                pff_pair, jnp.asarray(target),
-                jnp.asarray(mask), jnp.asarray(mcode),
-                jnp.asarray(zw) if zero else None, scalars,
-            )
-            ref = F._mraf_carry_step_jnp(
-                *args, rule=rule, kim=kim, stats_on=True, zero=zero
-            )
-            PF._INTERPRET = True
-            try:
-                got = PF.mraf_carry_step_pallas(
-                    *args, rule=rule, kim=kim, stats_on=True, zero=zero
-                )
-            finally:
-                PF._INTERPRET = False
-            tag = f"{rule}/zero={zero}"
-            scale = np.abs(np.asarray(ref[0])).max()
-            np.testing.assert_allclose(
-                np.asarray(got[0]) / scale, np.asarray(ref[0]) / scale,
-                atol=3e-5, err_msg=f"{tag}/gr",
-            )
-            np.testing.assert_allclose(
-                np.asarray(got[2]), np.asarray(ref[2]),
-                atol=3e-5, rtol=1e-4, err_msg=f"{tag}/uw",
-            )
-            if zero:
-                np.testing.assert_allclose(
-                    np.asarray(got[4]), np.asarray(ref[4]),
-                    atol=3e-5, rtol=1e-4, err_msg=f"{tag}/zw",
-                )
-            np.testing.assert_allclose(
-                np.asarray(got[5]), np.asarray(ref[5]),
-                atol=3e-5, rtol=1e-4, err_msg=f"{tag}/sums",
-            )
 
     def test_unbalanced_shapes_stay_natural(self):
         """Sizes with no balanced four-step split (primes, 2xprime)
@@ -1245,22 +795,20 @@ class TestScheduledEngine:
         even when the compiled run raises."""
         import dataclasses
 
-        from slmsuite_tpu.ops import pallas_fft as PF
+        from slmsuite_tpu.ops import fft as F
         from slmsuite_tpu.ops.engine import run_gs
 
         m = self._model(N=96)
-        prior = PF._DOT_PRECISION
+        prior = F._PRECISION
         config = dataclasses.replace(m.config, kernel_precision="DEFAULT")
         run_gs(config, m.init_state(), m.consts, 2)
-        assert PF._DOT_PRECISION == prior
+        assert F._PRECISION == prior
 
     def test_refine_pinned_to_highest(self, monkeypatch):
         """The refine phase must run at HIGHEST explicitly, not inherit
-        whatever the pallas_fft module global happens to be: a
-        user-level set_kernel_precision('DEFAULT') would otherwise
-        silently degrade the 'HIGHEST refine' this engine documents
-        (and attest_schedule_quality could not catch it, because its
-        all-HIGHEST baseline inherits the same global)."""
+        whatever the ops.fft module global happens to be: a
+        user-level set_fft_precision('DEFAULT') would otherwise
+        silently degrade the 'HIGHEST refine' this engine documents."""
         from slmsuite_tpu.ops import engine as E
 
         m = self._model(N=96)
@@ -1458,13 +1006,12 @@ def test_non_pow2_shapes_fall_back():
 
 
 def test_non_pow2_large_farfield_optimizes():
-    """1536^2 (= 3 * 512, non-power-of-two) optimizes correctly. On CPU
-    (this run) it takes the XLA-FFT tier; since the four-step split was
-    generalized to balanced composites, 1536 is ALSO fast-path-eligible
-    on TPU (split 48x32, 128-divisible for the Pallas grids) — asserted
-    below. The reference runs any shape with a speed recommendation only
-    (/root/reference/slmsuite/holography/algorithms/_hologram.py:616-725);
-    perf expectation documented in docs/source/tpu.rst."""
+    """1536^2 (= 3 * 512, non-power-of-two) optimizes correctly on the
+    default FFT tier; since the four-step split was generalized to
+    balanced composites, 1536 is also eligible for the scrambled
+    matmul loop (split 48x32) — asserted below. The reference runs any
+    shape with a speed recommendation only (reference
+    ``_hologram.py:616-725``)."""
     N = 1536
     target = np.zeros((N, N), np.float32)
     idx = (np.arange(8) * 96 + 400).astype(int)
@@ -1479,7 +1026,7 @@ def test_non_pow2_large_farfield_optimizes():
     assert stats["uniformity"][-1] > 0.8
     assert stats["uniformity"][-1] > stats["uniformity"][0]
     # 1536 has a balanced split, so the scrambled gate ACCEPTS it when
-    # scrambling is enabled (TPU "auto"); a prime-ish size must decline.
+    # scrambling is enabled; a prime-ish size must decline.
     import dataclasses
 
     from slmsuite_tpu.ops import fft as F
@@ -1807,45 +1354,12 @@ class TestPrecisionScheduleFlag:
         assert np.isfinite(holo.phase).all()
 
 
-class TestWexpKernel:
-    def test_wexp_inverse_kernel_interpret(self):
-        """The constraint-synthesizing inverse kernel matches the jnp
-        composition (interpreter mode)."""
-        import jax.numpy as jnp
-
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        N = 128
-        rng = np.random.default_rng(7)
-        w = jnp.asarray(rng.random((N, N)).astype(np.float32))
-        phase = jnp.asarray(
-            rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-        )
-        re, im = F.ifft2_scrambled_pair(
-            w * jnp.cos(phase), w * jnp.sin(phase)
-        )
-        ref = np.arctan2(np.asarray(im), np.asarray(re))
-
-        PF._INTERPRET = True
-        try:
-            got = np.asarray(PF.wexp_ifft2_scrambled_phase(w, phase))
-        finally:
-            PF._INTERPRET = False
-        # Phase is ill-conditioned where |field| ~ 0; compare via the
-        # wrapped difference on significant pixels.
-        mag = np.hypot(np.asarray(re), np.asarray(im))
-        sig = mag > mag.max() * 1e-3
-        diff = np.angle(np.exp(1j * (got - ref)))
-        assert np.abs(diff[sig]).max() < 2e-4
-
-
 class TestMemoryConstrainedShape:
-    """TPU analog of the reference's mempool-constrained shape heuristic
+    """Analog of the reference's mempool-constrained shape heuristic
     (ref _hologram.py:727-738): live-buffer model of the scanned engine
-    vs a per-chip HBM budget, with a scaling-path recommendation."""
+    vs a per-device memory budget, with a scaling-path recommendation."""
 
-    def test_constrained_side_v5e(self, spot_target):
+    def test_constrained_side_16gb(self, spot_target):
         target, slm_shape = spot_target
         holo = Hologram(target, slm_shape=slm_shape)
         side = holo._calculate_memory_constrained_shape(budget=16e9)
@@ -1857,7 +1371,7 @@ class TestMemoryConstrainedShape:
         ) < side
 
     def test_strategy_flip(self):
-        # A full v5e chip fits the fused 8192^2 step (14 planes x 268 MB
+        # A 16 GB budget fits the fused 8192^2 step (14 planes x 268 MB
         # x 1.25 ~ 4.7 GB)...
         fits = Hologram.suggest_memory_strategy((8192, 8192), budget=16e9)
         assert fits["fits"] and fits["recommendation"] == "single-chip"

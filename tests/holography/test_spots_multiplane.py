@@ -376,17 +376,15 @@ class TestCompressedSpotHologram:
             np.testing.assert_allclose(tw[0], ref[0], atol=2e-5)
             np.testing.assert_allclose(tw[1], ref[1], atol=2e-5)
 
-            PC._INTERPRET = True
-            try:
-                got = unit(*PC.fused_iteration(ffr, ffi, coeffs, basis, amp, N))
-            finally:
-                PC._INTERPRET = False
+            got = unit(*PC.fused_iteration(
+                ffr, ffi, coeffs, basis, amp, N, interpret=True
+            ))
             np.testing.assert_allclose(got[0], ref[0], atol=2e-5)
             np.testing.assert_allclose(got[1], ref[1], atol=2e-5)
 
     def test_kernel_cache_matches_recompute(self, rng):
         """The cached-kernel transform twins (cos/sin tiles streamed
-        from HBM) match the recompute path — the cache is built with
+        from device memory) match the recompute path — the cache is built with
         the identical einsum/sincos, so tolerances are tight."""
         import jax.numpy as jnp
 
@@ -405,9 +403,7 @@ class TestCompressedSpotHologram:
 
         kc, ks = C.build_kernel_cache(coeffs, basis)
         n_tiles = -(-P // C.PIXEL_TILE)
-        # Spot axis is 8-padded so the Pallas streaming kernel is
-        # available for every spot count.
-        assert kc.shape == (n_tiles, 24, C.PIXEL_TILE)
+        assert kc.shape == (n_tiles, N, C.PIXEL_TILE)
 
         want = C.farfield_to_nearfield(ffr, ffi, coeffs, basis, N)
         got = C.farfield_to_nearfield_cached(ffr, ffi, kc, ks, P)
@@ -415,49 +411,16 @@ class TestCompressedSpotHologram:
         np.testing.assert_allclose(got[1], want[1], atol=1e-6)
 
         want = C.nearfield_to_farfield(nfr, nfi, coeffs, basis, N)
-        got = C.nearfield_to_farfield_cached(nfr, nfi, kc, ks, P, n_spots=N)
+        got = C.nearfield_to_farfield_cached(nfr, nfi, kc, ks, P)
         np.testing.assert_allclose(got[0], want[0], atol=1e-5)
         np.testing.assert_allclose(got[1], want[1], atol=1e-5)
 
         for amp in (jnp.float32(1.0), amp_plane):
             want = C._fused_iteration_jnp(ffr, ffi, coeffs, basis, amp, N)
-            got = C._fused_iteration_cached(ffr, ffi, kc, ks, amp, N, P)
+            got = C.fused_iteration_cached(ffr, ffi, kc, ks, amp, N, P)
+            assert got[0].shape == (N,)
             np.testing.assert_allclose(got[0], want[0], atol=1e-4)
             np.testing.assert_allclose(got[1], want[1], atol=1e-4)
-
-        # Pallas streaming twin (interpret mode) at the UNALIGNED spot
-        # count: the 8-padded cache makes it available for N=17 too.
-        from slmsuite_tpu.ops import pallas_compressed as PC
-
-        assert PC.fused_iter_cached_ok(kc.shape[1], C.PIXEL_TILE)
-        for amp in (jnp.float32(1.0), amp_plane):
-            want = C._fused_iteration_cached(ffr, ffi, kc, ks, amp, N, P)
-            PC._INTERPRET = True
-            try:
-                got = PC.fused_iteration_cached(ffr, ffi, kc, ks, amp, N, P)
-            finally:
-                PC._INTERPRET = False
-            assert got[0].shape == (N,)
-            np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-4)
-            np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-4)
-
-        N8 = 16
-        coeffs8 = jnp.asarray(rng.normal(size=(D, N8)).astype(np.float32) * 5)
-        ffr8 = jnp.asarray(rng.normal(size=(N8,)).astype(np.float32))
-        ffi8 = jnp.asarray(rng.normal(size=(N8,)).astype(np.float32))
-        kc8, ks8 = C.build_kernel_cache(coeffs8, basis)
-        assert PC.fused_iter_cached_ok(N8, C.PIXEL_TILE)
-        for amp in (jnp.float32(1.0), amp_plane):
-            want = C._fused_iteration_cached(ffr8, ffi8, kc8, ks8, amp, N8, P)
-            PC._INTERPRET = True
-            try:
-                got = PC.fused_iteration_cached(
-                    ffr8, ffi8, kc8, ks8, amp, N8, P
-                )
-            finally:
-                PC._INTERPRET = False
-            np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-4)
-            np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-4)
 
     def test_kernel_cache_engine_parity(
         self, fourierslm_calibrated, rng, monkeypatch

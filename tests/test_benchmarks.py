@@ -6,8 +6,8 @@ Mirrors the reference's pytest-benchmark table (``tests/README.md``
 ``image_moment``, ``image_fit``, ``blaze``, ``lens``, ``zernike_sum``,
 ``imprint``, GS/WGS optimize). pytest-benchmark isn't in this
 environment, so these are plain timed loops that log rates; they assert
-only completion, not thresholds (the shared dev TPU's throughput varies
->10x between sessions).
+only completion, not thresholds (rates on a shared machine vary too
+much to gate on).
 
 Run with ``pytest tests/test_benchmarks.py -m slow -s`` to see rates.
 """

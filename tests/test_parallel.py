@@ -366,62 +366,6 @@ class TestBatchedScrambled:
         )
 
 
-    def test_wexp_complex_inverse_interpret_parity(self):
-        """The fused complex wexp inverse (multiplane backward) in
-        Pallas interpreter mode matches the composed einsum twin.
-        (The full vmapped step cannot run interpret-mode — jax's
-        vmap-of-interpret-pallas hits an internal lowering-cache bug —
-        so the kernels are pinned un-vmapped here and the integrated
-        step is pinned by the jnp-twin test above plus the on-chip
-        parity run recorded in the commit message.)"""
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        rng = np.random.default_rng(3)
-        N = 128
-        w = np.abs(rng.normal(size=(N, N))).astype(np.float32)
-        phase = rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32)
-
-        re_t, im_t = F.ifft2_scrambled_pair(
-            w * np.cos(phase), w * np.sin(phase)
-        )
-        PF._INTERPRET = True
-        try:
-            re_p, im_p = PF.wexp_ifft2_scrambled(w, phase)
-        finally:
-            PF._INTERPRET = False
-        np.testing.assert_allclose(
-            np.asarray(re_p), np.asarray(re_t), atol=2e-5, rtol=0
-        )
-        np.testing.assert_allclose(
-            np.asarray(im_p), np.asarray(im_t), atol=2e-5, rtol=0
-        )
-
-    def test_from_phase_forward_interpret_parity(self):
-        """The fused from-phase polar forward (multiplane forward) in
-        interpreter mode matches the composed twin."""
-        from slmsuite_tpu.ops import fft as F
-        from slmsuite_tpu.ops import pallas_fft as PF
-
-        rng = np.random.default_rng(4)
-        N = 128
-        psi = rng.uniform(-40, 40, (N, N)).astype(np.float32)
-        amp = np.abs(rng.normal(size=(N, N))).astype(np.float32)
-
-        re, im = F.fft2_scrambled_pair(amp * np.cos(psi), amp * np.sin(psi))
-        a_t = np.hypot(np.asarray(re), np.asarray(im))
-        PF._INTERPRET = True
-        try:
-            a_p, th_p = PF.fft2_scrambled_polar_from_phase(psi, amp)
-        finally:
-            PF._INTERPRET = False
-        np.testing.assert_allclose(np.asarray(a_p), a_t, atol=2e-4, rtol=0)
-        th_t = np.arctan2(np.asarray(im), np.asarray(re))
-        wrapped = np.abs(np.angle(np.exp(1j * (np.asarray(th_p) - th_t))))
-        # Phase is ill-conditioned where the amplitude vanishes.
-        assert np.percentile(wrapped[a_t > 1e-3 * a_t.max()], 99) < 1e-3
-
-
 class TestShardedPlaneEdgeCases:
     def test_kim_trigger_without_stat_groups(self):
         """fix_phase_efficiency set with NO stat groups must not

@@ -2,11 +2,11 @@
 Deterministic performance-regression guards.
 
 XLA's cost analysis (``bytes accessed``) is hardware-independent, so
-these bounds hold on the CPU CI exactly as on TPU for the einsum/jnp
+these bounds hold on the CPU CI exactly as on a GPU for the einsum/jnp
 tiers — a silent traffic regression (an extra materialized plane, a
-lost fusion) fails here without any timing flakiness. The Pallas tiers
-are opaque custom calls to cost analysis; their traffic is pinned by
-the analytic ``bench.step_model`` invariants instead.
+lost fusion) fails here without any timing flakiness. The fused
+compressed kernels are opaque custom calls to cost analysis and are not
+bounded here.
 """
 
 import numpy as np
@@ -14,23 +14,6 @@ import pytest
 
 # The shared `rng` fixture comes from tests/conftest.py (seeded from
 # SESSION_SEED); the traffic bounds below are seed-independent.
-
-
-def test_step_model_invariants():
-    import bench
-
-    # Fully-fused carry-mode step: 16 plane tiles at any power-of-two
-    # size (12 cols round trip incl. the Kim unit-phasor pair + 4 rows
-    # round trip).
-    for N in (256, 1024, 2048):
-        tile = N * N * 4
-        step_bytes, passes = bench.step_model(N, fused=True)
-        assert step_bytes == 16 * tile
-        assert passes > 0
-    # Unfused scrambled costs more traffic than fused.
-    assert bench.step_model(2048, fused=False)[0] > bench.step_model(2048, fused=True)[0]
-    # Pass model at 2048 (n1=64, n2=32): 4 axes x (512 + 1024) passes.
-    assert bench.step_model(2048, fused=True)[1] == 4 * (512 + 1024)
 
 
 def test_einsum_fft2_traffic_bound(rng):

@@ -1,97 +1,114 @@
 """
-The Pallas-FFT contraction precision must be honored per COMPILED RUN,
-not per process: the kernel bodies read the ``_DOT_PRECISION`` module
-global at trace time, and a plain nested ``@jax.jit`` caches its jaxpr
-by argument avals only — so without precision-keyed trace caches the
-first-seen precision would be silently baked in and reused by every
-later outer trace (making ``config.kernel_precision`` and the
-scheduled engine's HIGHEST refine trace-order-dependent).
+The four-step ("matmul") FFT tier's contraction precision must be honored
+per COMPILED RUN, not per process: the stage einsums read the
+``ops.fft._PRECISION`` module global at trace time, so the engine keys
+its compiled runs on ``GSConfig.kernel_precision`` and pins the global
+around each run. On a GPU ``"DEFAULT"`` runs the stage matmuls in TF32
+and ``"HIGHEST"`` in true float32; the ``"xla"`` tier ignores the knob.
 
 Reference analog: the reference exposes a single device-wide precision
-(cupy f32); the per-run precision knob is TPU-native, so these are
-original-contract tests.
+(cupy f32); the per-run precision knob is this package's own, so these
+are original-contract tests.
 """
 
 import numpy as np
 import pytest
 
-from slmsuite_tpu.ops import pallas_fft as PF
+from slmsuite_tpu.ops import fft as F
 
 
 @pytest.fixture(autouse=True)
-def _restore_precision():
-    prior = PF._DOT_PRECISION
+def _restore_fft_globals():
+    prior = (F._PRECISION, F._BACKEND)
     yield
-    PF._DOT_PRECISION = prior
+    F._PRECISION, F._BACKEND = prior
+
+
+def _dot_precisions(fn, *args):
+    """Precisions of every dot in the jaxpr of ``fn(*args)``."""
+    import jax
+
+    jaxpr = jax.make_jaxpr(fn)(*args)
+    return {
+        str(eqn.params["precision"])
+        for eqn in jaxpr.jaxpr.eqns
+        if eqn.primitive.name == "dot_general"
+    }
 
 
 def test_precision_keyed_jit_traces_once_per_precision():
-    """One trace per (avals, precision); the global read at trace time
-    is the precision the caller selected."""
+    """The engine compiles one program per ``kernel_precision`` (the
+    field is part of the compiled-run cache key), and each program's
+    stage matmuls carry its own precision."""
+    import dataclasses
+
+    from slmsuite_tpu.models import spot_array_wgs
+    from slmsuite_tpu.ops import engine as E
+
+    m = spot_array_wgs(N=64, n_side=2, spacing_div=8)
+    configs = {
+        p: dataclasses.replace(m.config, kernel_precision=p)
+        for p in ("HIGHEST", "DEFAULT")
+    }
+    runs = {p: E._compiled_run(c, 2) for p, c in configs.items()}
+    assert runs["HIGHEST"] is not runs["DEFAULT"]
+    assert E._compiled_run(configs["HIGHEST"], 2) is runs["HIGHEST"]
+
     import jax.numpy as jnp
 
-    traced = []
-
-    @PF._precision_keyed_jit()
-    def f(x):
-        traced.append(PF._DOT_PRECISION)
-        return x + 1
-
-    x = jnp.zeros((4,), jnp.float32)
-    PF.set_kernel_precision("HIGHEST")
-    f(x)
-    f(x)  # cache hit: no retrace
-    PF.set_kernel_precision("DEFAULT")
-    f(x)  # NEW trace under the new precision
-    f(x)
-    PF.set_kernel_precision("HIGHEST")
-    f(x)  # back to the first jit object: no retrace
-    assert traced == ["HIGHEST", "DEFAULT"]
+    x = jnp.ones((64, 64), jnp.complex64)
+    F.set_fft_backend("matmul")
+    seen = {}
+    for p in ("HIGHEST", "DEFAULT"):
+        F.set_fft_precision(p)
+        seen[p] = _dot_precisions(lambda a: F.fft2(a), x)
+    assert all(p in str(seen[p]) for p in seen), seen
 
 
 def test_entry_points_retrace_on_precision_change(monkeypatch):
-    """The real FFT entry points pick up a precision change on the next
-    call (interpret mode on CPU): _dot3 sees the live global at each
-    trace, in call order — not the first-seen global twice."""
-    seen = []
-    orig = PF._dot3
-
-    def spy(*args, **kwargs):
-        seen.append(PF._DOT_PRECISION)
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(PF, "_dot3", spy)
-    monkeypatch.setattr(PF, "_INTERPRET", True)
-
-    rng = np.random.default_rng(0)
+    """The FFT entry points pick up a precision change on the next
+    trace: ``_cmatmul`` sees the live global at each trace, in call
+    order — not the first-seen global twice."""
+    import jax
     import jax.numpy as jnp
 
-    xr = jnp.asarray(rng.standard_normal((256, 256)).astype(np.float32))
-    xi = jnp.zeros_like(xr)
+    seen = []
+    orig = F._cmatmul
 
-    PF.set_kernel_precision("DEFAULT")
-    r1 = PF._fft_rows(xr, xi, False)
+    def spy(*args, **kwargs):
+        seen.append(F._PRECISION)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(F, "_cmatmul", spy)
+    F.set_fft_backend("matmul")
+
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(
+        (rng.standard_normal((256, 256)) + 0j).astype(np.complex64)
+    )
+
+    F.set_fft_precision("DEFAULT")
+    r1 = jax.jit(lambda a: F.fft2(a))(x)
     assert seen and set(seen) == {"DEFAULT"}
 
     seen.clear()
-    PF.set_kernel_precision("HIGHEST")
-    r2 = PF._fft_rows(xr, xi, False)
+    F.set_fft_precision("HIGHEST")
+    r2 = jax.jit(lambda a: F.fft2(a))(x)
     assert seen and set(seen) == {"HIGHEST"}
 
-    # Same math on CPU f32 regardless of the MXU precision flag.
+    # Same math on the CPU (float32 either way) regardless of the flag.
     np.testing.assert_allclose(
-        np.asarray(r1[0]), np.asarray(r2[0]), rtol=1e-5, atol=1e-5
+        np.asarray(r1), np.asarray(r2), rtol=1e-5, atol=1e-5
     )
 
 
 def test_engine_pin_restores_global_and_batch_path_pins():
-    """run_gs_batch honors config.kernel_precision (it previously
-    ignored it: the compiled batch run was never wrapped with the
-    precision pin)."""
+    """run_gs_batch honors config.kernel_precision (the compiled batch
+    run is wrapped with the precision pin) and restores the global."""
     import dataclasses
 
-    import jax.tree_util as jtu
     import jax.numpy as jnp
+    import jax.tree_util as jtu
 
     from slmsuite_tpu.models import spot_array_wgs
     from slmsuite_tpu.ops.engine import run_gs_batch
@@ -103,18 +120,18 @@ def test_engine_pin_restores_global_and_batch_path_pins():
     )
     consts = jtu.tree_map(lambda x: jnp.stack([x, x]), m.consts)
 
-    prior = PF._DOT_PRECISION
+    prior = F._PRECISION
     recorded = []
-    orig_set = PF.set_kernel_precision
+    orig_set = F.set_fft_precision
 
     def spy_set(p):
         recorded.append(p)
         return orig_set(p)
 
-    PF.set_kernel_precision = spy_set
+    F.set_fft_precision = spy_set
     try:
         run_gs_batch(config, states, consts, 2)
     finally:
-        PF.set_kernel_precision = orig_set
+        F.set_fft_precision = orig_set
     assert "DEFAULT" in recorded  # the pin engaged
-    assert PF._DOT_PRECISION == prior  # and restored the global
+    assert F._PRECISION == prior  # and restored the global

@@ -443,7 +443,7 @@ class TestCompressedDifferential:
                 np.asarray(holo.phase),
             )
 
-        w_t, a_t, p_t = build("tpu")
+        w_t, a_t, p_t = build("ours")
         w_r, a_r, p_r = build("ref")
         np.testing.assert_allclose(
             w_t / w_t.sum(), w_r / w_r.sum(), atol=1e-6, rtol=0
@@ -522,7 +522,7 @@ class TestClosedLoopDifferential:
                 ),
             )
 
-        w_t, p_t, u_t = build("tpu")
+        w_t, p_t, u_t = build("ours")
         w_r, p_r, u_r = build("ref")
         wt, wr = w_t[w_t != 0], w_r[w_r != 0]
         assert wt.size == wr.size == 3
@@ -583,7 +583,7 @@ class TestMultiplaneDifferential:
             ]
             return np.asarray(holo.phase), np.stack(effs)
 
-        p_t, e_t = build("tpu")
+        p_t, e_t = build("ours")
         p_r, e_r = build("ref")
         wrapped = np.angle(np.exp(1j * (p_t - p_r)))
         assert np.percentile(np.abs(wrapped), 99) < 1e-4
@@ -623,7 +623,7 @@ class TestCGDifferential:
                 holo.optimize("CG", maxiter=8, verbose=False)
             return np.asarray(holo.phase)
 
-        p_t = build("tpu")
+        p_t = build("ours")
         p_r = build("ref")
         wrapped = np.angle(np.exp(1j * (p_t - p_r)))
         assert np.abs(wrapped).max() < 1e-4
@@ -686,7 +686,7 @@ class TestRefineOffsetDifferential:
                 np.asarray(holo.spot_kxy, dtype=np.float64),
             )
 
-        o_t, k_t = build("tpu")
+        o_t, k_t = build("ours")
         o_r, k_r = build("ref")
         np.testing.assert_array_equal(o_t, o_r)
         np.testing.assert_array_equal(k_t, k_r)
@@ -880,7 +880,7 @@ class TestCameraRoutinesDifferential:
                 cam.autoexposure(set_fraction=0.4, tol=0.03, verbose=False)
             return cam.get_exposure()
 
-        assert run("tpu") == run("ref")
+        assert run("ours") == run("ref")
 
     def test_autofocus_recovers_same_optimum(self, ref):
         """SLM-actuated autofocus (Zernike-defocus sweep -> Fourier
@@ -907,7 +907,7 @@ class TestCameraRoutinesDifferential:
                 _w.simplefilter("ignore")
                 return cam.autofocus(slm, get_z=0, range_z=2, plot=False)
 
-        z_t, z_r = run("tpu"), run("ref")
+        z_t, z_r = run("ours"), run("ref")
         assert abs(z_t - z_r) < 1e-4
         assert abs(z_t + 0.434) < 0.01  # Compensates the injection.
 
@@ -964,7 +964,7 @@ class TestSuperpixelDifferential:
                 "wavefront_superpixel", cs.calibrations.get("wavefront", {})
             )
 
-        d_t, d_r = run("tpu"), run("ref")
+        d_t, d_r = run("ours"), run("ref")
         for key in ("kx", "ky", "power", "normalization",
                     "interference_size"):
             np.testing.assert_array_equal(
@@ -1038,7 +1038,7 @@ class TestZernikeCalibrationDifferential:
             )
             return corr[2]  # Basis order [2,1,4,3,5,6]: row 2 = focus.
 
-        c_t, c_r = run("tpu"), run("ref")
+        c_t, c_r = run("ours"), run("ref")
         assert np.abs(c_t - c_r).max() < 0.05
         assert abs(c_t.mean() - c_r.mean()) < 0.02
         assert c_t.mean() < -0.2 and c_r.mean() < -0.2  # Injection felt.
@@ -1080,7 +1080,7 @@ class TestHDRDifferential:
                 hdr = np.asarray(cam.get_image(hdr=4), dtype=np.float64)
             return plain, hdr
 
-        p_t, h_t = run("tpu")
+        p_t, h_t = run("ours")
         p_r, h_r = run("ref")
         np.testing.assert_array_equal(h_t, h_r)
         assert not np.array_equal(p_t, h_t)  # Reconstruction engaged.
@@ -1135,7 +1135,7 @@ class TestSettlePixelDifferential:
                 cs.settle_calibration_process(plot=False)
             return cs.calibrations["settle"]
 
-        d_t, d_r = run("tpu"), run("ref")
+        d_t, d_r = run("ours"), run("ref")
         for key in ("data", "times", "communication_time", "relax_time",
                     "settle_time"):
             np.testing.assert_array_equal(
@@ -1158,7 +1158,7 @@ class TestSettlePixelDifferential:
                 cs.pixel_calibrate(levels=4, periods=[16, 32], orders=1)
             return cs.calibrations["pixel"]
 
-        d_t, d_r = run("tpu"), run("ref")
+        d_t, d_r = run("ours"), run("ref")
         for key in ("data", "levels", "orders", "periods"):
             np.testing.assert_array_equal(
                 np.asarray(d_t[key]), np.asarray(d_r[key]), err_msg=key
@@ -1224,7 +1224,7 @@ class TestRemoteInteropDifferential:
             x = np.arange(64, dtype=np.float32)
             ramp = np.broadcast_to(0.3 * x, (64, 64)).copy()
             rslm.set_phase(ramp)
-            if server_side == "tpu":
+            if server_side == "ours":
                 # Our SimulatedSLM stores remote writes, so the display
                 # must show the actual quantized ramp, not a stale
                 # frame (regression: a no-op _set_phase_hw passed a
@@ -1237,11 +1237,11 @@ class TestRemoteInteropDifferential:
 
     def test_our_clients_drive_reference_server(self, ref):
         del ref
-        self._serve_and_drive(server_side="ref", client_side="tpu")
+        self._serve_and_drive(server_side="ref", client_side="ours")
 
     def test_reference_clients_drive_our_server(self, ref):
         del ref
-        self._serve_and_drive(server_side="tpu", client_side="ref")
+        self._serve_and_drive(server_side="ours", client_side="ref")
 
 
 class TestFileFormatInterop:
@@ -1279,7 +1279,7 @@ class TestFileFormatInterop:
 
         with _w.catch_warnings():
             _w.simplefilter("ignore")
-            for writer, reader in (("tpu", "ref"), ("ref", "tpu")):
+            for writer, reader in (("ours", "ref"), ("ref", "ours")):
                 cs_w = make(writer)
                 path = cs_w.save_calibration(
                     "fourier", path=str(tmp_path), name=f"interop_{writer}"
@@ -1390,7 +1390,7 @@ class TestTransformsDifferential:
 
         with _w.catch_warnings():
             _w.simplefilter("ignore")
-            cs_t, cs_r = rig("tpu"), rig("ref")
+            cs_t, cs_r = rig("ours"), rig("ref")
             v2 = rng.uniform(-8e-3, 8e-3, (2, 7))
             v3 = np.vstack([v2, rng.uniform(-2e-7, 2e-7, 7)])
             for v in (v2, v3):
@@ -1500,7 +1500,7 @@ class TestCompressedMRAFDifferential:
                 np.asarray(holo.phase),
             )
 
-        a_t, w_t, p_t = build("tpu")
+        a_t, w_t, p_t = build("ours")
         a_r, w_r, p_r = build("ref")
         np.testing.assert_allclose(a_t, a_r, atol=1e-5, rtol=0)
         np.testing.assert_allclose(
@@ -1560,7 +1560,7 @@ class TestDefocusBlurDifferential:
                     )
                 )
 
-        np.testing.assert_array_equal(run("tpu"), run("ref"))
+        np.testing.assert_array_equal(run("ours"), run("ref"))
 
 
 class TestCompressedMRAFVariantsDifferential:
@@ -1620,7 +1620,7 @@ class TestCompressedMRAFVariantsDifferential:
         the host loop, which carries ``_zero_weights_c`` like upstream's
         ``zero_weights``."""
         del ref
-        a_t, p_t = self._run("tpu", zero_factor=0.5)
+        a_t, p_t = self._run("ours", zero_factor=0.5)
         a_r, p_r = self._run("ref", zero_factor=0.5)
         np.testing.assert_allclose(a_t, a_r, atol=1e-5, rtol=0)
         wrapped = np.angle(np.exp(1j * (p_t - p_r)))
@@ -1632,7 +1632,7 @@ class TestCompressedMRAFVariantsDifferential:
         scanned engine. Regression: the stepwise backward transform
         used to drop the mix and suppress noise spots."""
         del ref
-        a_t, p_t = self._run("tpu", callback=lambda h: False)
+        a_t, p_t = self._run("ours", callback=lambda h: False)
         a_r, p_r = self._run("ref", callback=lambda h: False)
         np.testing.assert_allclose(a_t, a_r, atol=1e-5, rtol=0)
         assert a_t[4] > 0.1  # Noise spot kept amplitude on the host loop.
@@ -1642,7 +1642,7 @@ class TestCompressedMRAFVariantsDifferential:
         crash (the trigger computes the efficiency inline). Regression:
         IndexError at trace time."""
         del ref
-        a_t, _ = self._run("tpu", fix_phase_efficiency=0.9)
+        a_t, _ = self._run("ours", fix_phase_efficiency=0.9)
         assert np.isfinite(a_t).all()
 
 
@@ -1698,7 +1698,7 @@ class TestSpotNullRegionDifferential:
             ff = holo.amp_ff if which != "ref" else np.abs(holo.farfield)
             return np.asarray(holo.phase), np.asarray(np.abs(np.asarray(ff)))
 
-        p_t, a_t = build("tpu")
+        p_t, a_t = build("ours")
         p_r, a_r = build("ref")
         wrapped = np.angle(np.exp(1j * (p_t - p_r)))
         assert np.percentile(np.abs(wrapped), 99) < 1e-4
@@ -1784,7 +1784,7 @@ class TestPlotFarfieldDifferential:
     @pytest.mark.parametrize("units", ["knm", "kxy", "mrad", "deg", "freq", "lpmm"])
     def test_extents_match_reference(self, ref, units):
         del ref
-        holo_t = self._build("tpu")
+        holo_t = self._build("ours")
         holo_r = self._build("ref")
         out_t = self._render(holo_t, units)
         out_r = self._render(holo_r, units)
@@ -1808,7 +1808,7 @@ class TestPlotFarfieldDifferential:
         """The camera field-of-view polyline renders on the full view
         (count the overlay lines; the reference draws the same one)."""
         del ref
-        holo_t = self._build("tpu")
+        holo_t = self._build("ours")
         holo_r = self._build("ref")
         out_t = self._render(holo_t, "knm")
         out_r = self._render(holo_r, "knm")
@@ -1817,7 +1817,7 @@ class TestPlotFarfieldDifferential:
 
     def test_camera_units_rejected(self, ref):
         del ref
-        holo = self._build("tpu")
+        holo = self._build("ours")
         with pytest.raises(ValueError):
             self._render(holo, "ij")
 
@@ -1916,7 +1916,7 @@ class TestSuperpixelProcessDifferential:
 
         del ref
         out = {}
-        for which in ("tpu", "ref"):
+        for which in ("ours", "ref"):
             cs = self._build(which)
             data = self._raw_measurement(cs.slm, holey)
             cs.calibrations["wavefront"] = data
@@ -1932,15 +1932,15 @@ class TestSuperpixelProcessDifferential:
                 )
 
         np.testing.assert_array_equal(
-            out["tpu"]["amplitude"], out["ref"]["amplitude"]
+            out["ours"]["amplitude"], out["ref"]["amplitude"]
         )
-        np.testing.assert_array_equal(out["tpu"]["r2"], out["ref"]["r2"])
+        np.testing.assert_array_equal(out["ours"]["r2"], out["ref"]["r2"])
 
         # Compare phase away from (a) the SLM border band the reference's
         # imprint never writes (+ smoothing diffusion), and (b) untrusted
         # superpixels (+ 1-superpixel erosion: the fill algorithms are a
         # documented deviation; their smoothing halo is excluded too).
-        r2 = self._raw_measurement(self._build("tpu").slm, holey)["r2_fit"]
+        r2 = self._raw_measurement(self._build("ours").slm, holey)["r2_fit"]
         trusted = (r2 >= 0.9).astype(np.uint8)
         eroded = cv2.erode(
             trusted, np.ones((3, 3), np.uint8),
@@ -1953,7 +1953,7 @@ class TestSuperpixelProcessDifferential:
         assert mask.sum() > (1200 if holey else 3000)
 
         diff = np.angle(
-            np.exp(1j * (out["tpu"]["phase"] - out["ref"]["phase"]))
+            np.exp(1j * (out["ours"]["phase"] - out["ref"]["phase"]))
         )
         # Remove the global piston (circular mean over the mask).
         piston = np.angle(np.exp(1j * diff[mask]).mean())
